@@ -1,0 +1,54 @@
+"""Carry parameters and specs across from the JAX reference package.
+
+The reference keeps hyperparameters as a dict of arrays keyed by name
+(``ls_total``, ``η_total``, ``σ``, ``W_Parameter``, ...) and the covariance
+structure as frozen ``GPSpec``/``GPTerm``/``CoregTerm`` dataclasses. These
+helpers move both into the port without importing the reference: numpy
+arrays on one side, tensors on the other, and specs read by attribute.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.kernels import CoregTerm, GPSpec, GPTerm
+
+__all__ = ["params_from_numpy", "params_to_numpy", "spec_from_reference"]
+
+
+def params_from_numpy(params, *, device, dtype) -> dict:
+    """Reference parameter dict (arrays) → the port's tensors on ``device``."""
+    return {k: torch.as_tensor(np.array(v), dtype=dtype, device=device) for k, v in params.items()}
+
+
+def params_to_numpy(params) -> dict:
+    """The port's parameter dict → numpy arrays (for the reference package)."""
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def _coreg(cg):
+    if cg is None:
+        return None
+    return CoregTerm(name=cg.name, col=int(cg.col), d_out=int(cg.d_out), rank=int(cg.rank))
+
+
+def spec_from_reference(spec) -> GPSpec:
+    """The port's ``GPSpec`` from any object with the reference's fields."""
+    terms = tuple(
+        GPTerm(
+            suffix=t.suffix,
+            kernel=t.kernel,
+            linear_idx=tuple(int(i) for i in t.linear_idx),
+            coregs=tuple(_coreg(c) for c in t.coregs),
+        )
+        for t in spec.terms
+    )
+    return GPSpec(
+        terms=terms,
+        d_cont=int(spec.d_cont),
+        ard=bool(spec.ard),
+        noise_coreg=_coreg(spec.noise_coreg),
+        period=None if spec.period is None else tuple(float(p) for p in spec.period),
+        likelihood=getattr(spec, "likelihood", "gaussian"),
+    )
