@@ -12,9 +12,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.iterative import IterConfig
 from .ops.kernels import CoregTerm, GPSpec, GPTerm
 
-__all__ = ["params_from_numpy", "params_to_numpy", "spec_from_reference"]
+__all__ = [
+    "params_from_numpy",
+    "params_to_numpy",
+    "spec_from_reference",
+    "iter_config_from_reference",
+    "iter_cache_from_numpy",
+    "iter_cache_to_numpy",
+]
 
 
 def params_from_numpy(params, *, device, dtype) -> dict:
@@ -52,3 +60,29 @@ def spec_from_reference(spec) -> GPSpec:
         period=None if spec.period is None else tuple(float(p) for p in spec.period),
         likelihood=getattr(spec, "likelihood", "gaussian"),
     )
+
+
+def iter_config_from_reference(cfg) -> IterConfig:
+    """The port's ``IterConfig`` from any object with the reference's fields."""
+    return IterConfig(
+        maxiter=int(cfg.maxiter),
+        tol=float(cfg.tol),
+        n_probes=int(cfg.n_probes),
+        precond_rank=int(cfg.precond_rank),
+        block=int(cfg.block),
+        quad_steps=int(cfg.quad_steps),
+        jitter=float(cfg.jitter),
+        love_rank=int(cfg.love_rank),
+        sym_matvec=None if cfg.sym_matvec is None else bool(cfg.sym_matvec),
+    )
+
+
+def iter_cache_from_numpy(cache, *, device, dtype) -> dict:
+    """A reference ``iter_posterior_cache`` dict ({alpha, L, d[, W]}, arrays)
+    → the port's tensors on ``device``."""
+    return {k: torch.as_tensor(np.array(v), dtype=dtype, device=device) for k, v in cache.items()}
+
+
+def iter_cache_to_numpy(cache) -> dict:
+    """The port's iterative posterior cache → numpy arrays."""
+    return {k: v.detach().cpu().numpy() for k, v in cache.items()}

@@ -1,6 +1,29 @@
 """PyTorch/CUDA compute core: kernels, likelihoods, optimizers, posteriors."""
 
-from .hopper_kernels import RbfGram, rbf_gram, rbf_gram_plain  # noqa: F401
+from .hopper_kernels import (  # noqa: F401
+    FUSABLE_KERNELS,
+    FusedMatvec,
+    FusedMatvecSym,
+    RbfGram,
+    fused_matvec_plain,
+    fused_stationary_matvec,
+    fused_stationary_matvec_sym,
+    rbf_gram,
+    rbf_gram_plain,
+    sym_matvec_fits,
+)
+from .iterative import (  # noqa: F401
+    IterConfig,
+    draw_probes,
+    fit_iter_map,
+    iter_gaussian_logp,
+    iter_map_neg_logp,
+    iter_map_value,
+    iter_map_value_and_grad,
+    iter_posterior_cache,
+    iter_predict_diag,
+    iter_predict_mean,
+)
 from .kernels import (  # noqa: F401
     CONTINUOUS_KERNELS,
     CoregTerm,
@@ -16,6 +39,7 @@ from .kronecker import KronCache, kron_cache, kron_mll, kron_neg_logp, kron_pred
 from .linalg import quad_and_logdet, spd_solve  # noqa: F401
 from .mll import DEFAULT_JITTER, cholesky_factor, map_neg_logp, mll  # noqa: F401
 from .optimize import (  # noqa: F401
+    coarse_restart_map,
     fit_gp_map,
     fit_kron_map,
     lbfgs_backtracking_minimize,

@@ -20,7 +20,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "find_nvcc", "load_library"]
+__all__ = ["NVCC_FLAGS", "build_libraries", "find_nvcc", "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -56,30 +56,45 @@ def _source_hash(src: Path) -> str:
     return h.hexdigest()[:16]
 
 
-@functools.lru_cache(maxsize=None)
-def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
-    src = CSRC / f"{name}.cu"
-    lib = BUILD_DIR / f"{name}-{_source_hash(src)}.so"
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = find_nvcc()
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_source_hash(CSRC / f'{name}.cu')}.so"
+
+
+def build_libraries(names) -> None:
+    """Build every missing ``csrc/<name>.cu`` library, one nvcc per source,
+    all started together; raise if any build fails."""
+    todo = [n for n in dict.fromkeys(names) if not _lib_path(n).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    jobs = []
+    for name in todo:
         # Build into a temporary file and rename: concurrent first uses
         # never load a half-written library.
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        try:
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {src.name} (exit {proc.returncode}):\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, lib)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    return ctypes.CDLL(str(lib))
+        src = CSRC / f"{name}.cu"
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        jobs.append((name, src, tmp, proc))
+    failures = []
+    for name, src, tmp, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, _lib_path(name))
+        else:
+            failures.append(f"nvcc failed to build {src.name} (exit {proc.returncode}):\n{out}\n{err}")
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
+    build_libraries([name])
+    return ctypes.CDLL(str(_lib_path(name)))

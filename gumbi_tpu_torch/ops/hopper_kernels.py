@@ -8,8 +8,16 @@ tensor is the CUDA C++ kernel in ``csrc/rbf_gram.cu`` (built by nvcc for
 backward is the reference's ``_rbf_gram_bwd``: torch ops on the saved K,
 so it runs on both devices and is tested on the CPU.
 
-``RbfGram.launches`` counts kernel launches (CPU calls do not count), so a
-run can show that its main path went through the kernel.
+``fused_stationary_matvec`` / ``fused_stationary_matvec_sym``: K(x1, x2)·V
+and K(x, x)·V for a unit-amplitude stationary kernel with K never stored,
+the ports of the reference's fused Pallas matvecs. On a CUDA f32 tensor
+they are the CUDA C++ kernels in ``csrc/fused_matvec.cu``; on a CPU tensor
+both are :func:`fused_matvec_plain`. They are forward-only, as in the
+reference: the iterative engine never differentiates through them.
+
+``RbfGram.launches``, ``FusedMatvec.launches`` and
+``FusedMatvecSym.launches`` count kernel launches (CPU calls do not count),
+so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -21,7 +29,18 @@ import torch
 
 from ._build import load_library
 
-__all__ = ["RbfGram", "rbf_gram", "rbf_gram_plain"]
+__all__ = [
+    "RbfGram",
+    "rbf_gram",
+    "rbf_gram_plain",
+    "FUSABLE_KERNELS",
+    "FusedMatvec",
+    "FusedMatvecSym",
+    "fused_matvec_plain",
+    "fused_stationary_matvec",
+    "fused_stationary_matvec_sym",
+    "sym_matvec_fits",
+]
 
 
 def rbf_gram_plain(x1, x2, ls, eta):
@@ -159,3 +178,182 @@ class RbfGram(torch.autograd.Function):
 def rbf_gram(x1, x2, ls, eta):
     """η²·exp(−½ Σ_d ((x1−x2)/ls)²): the hand kernel on CUDA, plain on CPU."""
     return RbfGram.apply(x1, x2, ls, eta)
+
+
+# ------------------------------------------------------------------
+# Fused stationary Gram-matvec (the iterative engine's matvec)
+# ------------------------------------------------------------------
+
+# Stationary kernels the fused matvec evaluates from a scaled squared
+# distance alone (the reference's FUSABLE_KERNELS), with their code in
+# csrc/fused_matvec.cu.
+FUSABLE_KERNELS = ("ExpQuad", "RBF", "Matern12", "Matern32", "Matern52", "Exponential")
+_KIND = {"ExpQuad": 0, "RBF": 0, "Matern12": 1, "Exponential": 2, "Matern32": 3, "Matern52": 4}
+
+# The symmetric kernel's deterministic band reduction keeps one (n, r) slot
+# per band and side; past this much scratch the engine takes the general
+# kernel (the reference gated on its 32 MB VMEM accumulator instead).
+SYM_SCRATCH_BYTES_MAX = 1 << 30
+SYM_TILE = 1024  # band-grid tile rows; csrc/fused_matvec.cu SYM_T
+
+# Rows of K the plain version forms at once: ~2^28 entries (1 GiB at f32).
+_PLAIN_ENTRIES = 1 << 28
+
+
+def fused_matvec_plain(x1, x2, v, ls, kernel="ExpQuad"):
+    """K(x1, x2) @ v with unit amplitude, in plain torch, any dtype and device.
+
+    The same arithmetic as the CUDA kernels: divide by ls first, sum the
+    squared coordinate differences in order d = 0, 1, …, apply the
+    stationary kernel (:func:`.kernels._stationary`), then one matmul. K is
+    formed in row chunks of about 2^28 entries, never whole at large n·m.
+    """
+    from .kernels import _stationary
+
+    n, d = x1.shape
+    m = x2.shape[0]
+    ls_b = ls.reshape(-1).expand(d)
+    a = x1 / ls_b
+    b = x2 / ls_b
+    out = torch.empty((n, v.shape[1]), dtype=v.dtype, device=v.device)
+    step = max(1, _PLAIN_ENTRIES // max(m, 1))
+    for s in range(0, n, step):
+        sq = torch.zeros((min(step, n - s), m), dtype=a.dtype, device=a.device)
+        for k in range(d):
+            diff = a[s : s + step, k : k + 1] - b[:, k : k + 1].T
+            sq = sq + diff * diff
+        out[s : s + step] = _stationary(kernel, sq) @ v
+    return out
+
+
+def sym_matvec_fits(n, r):
+    """Whether the symmetric kernel's band scratch, 2·(nb/2 + 1)·n·r f32
+    with nb = ⌈n / 1024⌉, stays within 1 GiB for an (n, n) self-Gram
+    against r columns."""
+    nb = -(-int(n) // SYM_TILE)
+    return 2 * (nb // 2 + 1) * int(n) * int(r) * 4 <= SYM_SCRATCH_BYTES_MAX
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_lib():
+    lib = load_library("fused_matvec")
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.fused_matvec_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i32, i32, ptr]
+    lib.fused_matvec_f32.restype = i32
+    lib.fused_matvec_sym_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr]
+    lib.fused_matvec_sym_f32.restype = i32
+    lib.fused_matvec_sym_tile.argtypes = []
+    lib.fused_matvec_sym_tile.restype = i32
+    if lib.fused_matvec_sym_tile() != SYM_TILE:
+        raise RuntimeError("csrc/fused_matvec.cu SYM_T disagrees with hopper_kernels.SYM_TILE")
+    return lib
+
+
+def _check_fused(name, tensors):
+    """Raise on anything the fused kernels do not take (no fallback)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for _, t in tensors):
+        raise RuntimeError(f"{name} is forward-only; call it under torch.no_grad()")
+    dev = tensors[0][1].device
+    for label, t in tensors:
+        if t.device.type != "cuda" or t.dtype != torch.float32:
+            raise TypeError(f"{name} kernel takes CUDA float32 tensors; {label} is {t.dtype} on {t.device}")
+        if t.device != dev:
+            raise ValueError(f"{name}: {label} is on {t.device}, {tensors[0][0]} on {dev}")
+
+
+def _scaled(x, ls):
+    d = x.shape[1]
+    if ls.numel() not in (1, d):
+        raise ValueError(f"ls {tuple(ls.shape)} must have 1 or {d} entries")
+    return (x / ls.reshape(-1).expand(d)).contiguous()
+
+
+class FusedMatvec:
+    """Launch counter of the general fused-matvec kernel."""
+
+    launches = 0  # only _launch_fused_matvec adds to it
+
+
+class FusedMatvecSym:
+    """Launch counter of the symmetric fused-matvec kernel."""
+
+    launches = 0  # only _launch_fused_matvec_sym adds to it
+
+
+def _launch_fused_matvec(x1, x2, v, ls, kernel):
+    _check_fused("fused_stationary_matvec", [("x1", x1), ("x2", x2), ("v", v), ("ls", ls)])
+    if x1.dim() != 2 or x2.dim() != 2 or v.dim() != 2 or x1.shape[1] != x2.shape[1] or v.shape[0] != x2.shape[0]:
+        raise ValueError(
+            f"fused_stationary_matvec: x1 {tuple(x1.shape)}, x2 {tuple(x2.shape)}, v {tuple(v.shape)} "
+            "must be (n,d), (m,d), (m,r)"
+        )
+    n, d = x1.shape
+    m, r = v.shape
+    out = torch.empty((n, r), dtype=torch.float32, device=x1.device)
+    if n == 0 or r == 0:
+        return out
+    if m == 0 or d == 0:
+        raise ValueError("fused_stationary_matvec kernel needs m >= 1 and d >= 1")
+    a, b, vc = _scaled(x1, ls), _scaled(x2, ls), v.contiguous()
+    lib = _fused_lib()
+    with torch.cuda.device(x1.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fused_matvec_f32(a.data_ptr(), b.data_ptr(), vc.data_ptr(), out.data_ptr(),
+                                   n, m, r, d, _KIND[kernel], stream)
+    if err != 0:
+        raise RuntimeError(f"fused_stationary_matvec kernel launch failed with CUDA error {err}")
+    FusedMatvec.launches += 1
+    return out
+
+
+def _launch_fused_matvec_sym(x, v, ls, kernel):
+    _check_fused("fused_stationary_matvec_sym", [("x", x), ("v", v), ("ls", ls)])
+    if x.dim() != 2 or v.dim() != 2 or v.shape[0] != x.shape[0]:
+        raise ValueError(
+            f"fused_stationary_matvec_sym: x {tuple(x.shape)}, v {tuple(v.shape)} must be (n,d), (n,r)"
+        )
+    n, d = x.shape
+    r = v.shape[1]
+    out = torch.empty((n, r), dtype=torch.float32, device=x.device)
+    if n == 0 or r == 0:
+        return out
+    if d == 0:
+        raise ValueError("fused_stationary_matvec_sym kernel needs d >= 1")
+    if not sym_matvec_fits(n, r):
+        raise ValueError(
+            f"fused_stationary_matvec_sym band scratch for n={n}, r={r} exceeds "
+            f"{SYM_SCRATCH_BYTES_MAX} bytes; use fused_stationary_matvec"
+        )
+    nb = -(-n // SYM_TILE)
+    slots = torch.empty((2, nb // 2 + 1, n, r), dtype=torch.float32, device=x.device)
+    a, vc = _scaled(x, ls), v.contiguous()
+    lib = _fused_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fused_matvec_sym_f32(a.data_ptr(), vc.data_ptr(), slots.data_ptr(), out.data_ptr(),
+                                       n, r, d, _KIND[kernel], stream)
+    if err != 0:
+        raise RuntimeError(f"fused_stationary_matvec_sym kernel launch failed with CUDA error {err}")
+    FusedMatvecSym.launches += 1
+    return out
+
+
+def fused_stationary_matvec(x1, x2, v, ls, kernel="ExpQuad"):
+    """K(x1, x2) @ v, unit amplitude: the CUDA kernel for CUDA tensors
+    (f32 only; anything else raises), :func:`fused_matvec_plain` on the CPU."""
+    if kernel not in FUSABLE_KERNELS:
+        raise ValueError(f"fused_stationary_matvec: kernel {kernel!r} is not one of {FUSABLE_KERNELS}")
+    if x1.device.type == "cpu":
+        return fused_matvec_plain(x1, x2, v, ls, kernel)
+    return _launch_fused_matvec(x1, x2, v, ls, kernel)
+
+
+def fused_stationary_matvec_sym(x, v, ls, kernel="ExpQuad"):
+    """K(x, x) @ v through the symmetric band-grid kernel for CUDA tensors
+    (f32 only, within :func:`sym_matvec_fits`), plain on the CPU. Agrees
+    with :func:`fused_stationary_matvec` to f32 round-off, not bitwise."""
+    if kernel not in FUSABLE_KERNELS:
+        raise ValueError(f"fused_stationary_matvec_sym: kernel {kernel!r} is not one of {FUSABLE_KERNELS}")
+    if x.device.type == "cpu":
+        return fused_matvec_plain(x, x, v, ls, kernel)
+    return _launch_fused_matvec_sym(x, v, ls, kernel)

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.torch_utils import default_model_dtype
+from ..utils.torch_utils import default_model_dtype, resolve_device
 from .kernels import GPSpec
 from .mll import DEFAULT_JITTER, map_neg_logp
 from .priors import constrain
@@ -24,6 +24,7 @@ from .priors import constrain
 __all__ = [
     "lbfgs_backtracking_minimize",
     "multi_restart_minimize",
+    "coarse_restart_map",
     "fit_gp_map",
     "fit_kron_map",
 ]
@@ -144,34 +145,55 @@ def lbfgs_backtracking_minimize(
     return x_best, torch.tensor(best_f, dtype=torch.float64), n_iters
 
 
-def multi_restart_minimize(fun, x0s, maxiter=250, tol=1e-6):
+def multi_restart_minimize(fun, x0s, maxiter=250, tol=1e-6, runner=None):
     """Multi-restart L-BFGS over stacked starting points; best optimum wins.
 
     ``x0s`` is a dict whose tensors carry a leading restart axis. Restarts
-    run one after another; those that diverge contribute +inf and are
-    ignored in the argmin.
+    run one after another, each through ``runner(x0) -> (x, f, iters)``
+    (default: :func:`lbfgs_backtracking_minimize` on ``fun``); those that
+    diverge contribute +inf and are ignored in the argmin. ``aux`` carries
+    the per-restart values and iterations and, as ``all_xs``, the stacked
+    per-restart optima (the staged large-N fit falls back to runner-up
+    candidates from them).
     """
+    if runner is None:
+        def runner(x0):
+            return lbfgs_backtracking_minimize(fun, x0, maxiter=maxiter, ftol=tol)
+
     R = next(iter(x0s.values())).shape[0]
     xs, fs, its = [], [], []
     for i in range(R):
-        x, f, it = lbfgs_backtracking_minimize(
-            fun, {k: v[i] for k, v in x0s.items()}, maxiter=maxiter, ftol=tol
-        )
+        x, f, it = runner({k: v[i] for k, v in x0s.items()})
         xs.append(x)
         fs.append(float(f))
-        its.append(it)
+        its.append(int(it))
     fs = np.asarray(fs)
     fs_safe = np.where(np.isfinite(fs), fs, np.inf)
     best = int(np.argmin(fs_safe))
-    aux = {"all_values": fs, "iters": np.asarray(its), "best_restart": best}
+    aux = {
+        "all_values": fs,
+        "iters": np.asarray(its),
+        "best_restart": best,
+        "all_xs": {k: torch.stack([x[k] for x in xs]) for k in xs[0]},
+    }
     return xs[best], torch.tensor(fs_safe[best], dtype=torch.float64), aux
 
 
+def coarse_restart_map(spec: GPSpec, xc, xk, y, ls_alpha, ls_beta, u0, maxiter=40, tol=1e-5):
+    """ONE L-BFGS restart of the dense-Cholesky MAP objective, the runner of
+    the staged large-N fit's coarse triage (pass it to
+    :func:`multi_restart_minimize` as ``runner``). Returns (u, f, iters)."""
+
+    def objective(u):
+        return map_neg_logp(spec, u, xc, xk, y, ls_alpha, ls_beta)
+
+    return lbfgs_backtracking_minimize(objective, u0, maxiter=maxiter, ftol=tol)
+
+
 def _model_placement(ref, device):
-    """(device, dtype) of a fit: ``device`` or ``ref``'s, and its model dtype."""
-    if device is None:
-        device = ref.device if isinstance(ref, torch.Tensor) else "cpu"
-    device = torch.device(device)
+    """(device, dtype) of a fit: ``device``, else ``ref``'s if it is a
+    tensor, else the CUDA card (:func:`resolve_device`); and its model dtype."""
+    device = resolve_device(device, ref)
     return device, default_model_dtype(device)
 
 
@@ -186,7 +208,8 @@ def fit_kron_map(
 
     Every array input (numpy or tensor) is cast to the model dtype
     (:func:`default_model_dtype`: f32 on CUDA, f64 on CPU) on ``device``
-    (default: ``xc_locs``'s device), so the objective never promotes. Returns
+    (default: ``xc_locs``'s device if it is a tensor, else CUDA), so the
+    objective never promotes. Returns
     ``(u_best, f_best, aux)`` with ``u_best`` unconstrained, as the reference.
     """
     from .kronecker import kron_neg_logp

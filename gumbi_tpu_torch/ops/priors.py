@@ -27,6 +27,7 @@ import torch
 from scipy import optimize as sopt
 from scipy import stats as sstats
 
+from ..utils.torch_utils import resolve_device
 from .kernels import GPSpec
 
 __all__ = [
@@ -185,14 +186,18 @@ def _moment(meta: ParamInfo, ls_alpha, ls_beta):
 
 def initial_params(
     spec: GPSpec, ls_alpha, ls_beta, n_restarts: int, seed: int,
-    dtype=torch.float64, device="cpu",
+    dtype=torch.float64, device=None,
 ) -> dict:
     """Stacked unconstrained initial points, shape (n_restarts, *param_shape).
+
+    The tensors go to ``device``: the CUDA card unless the caller passes
+    ``device="cpu"`` (:func:`resolve_device`; no CUDA there raises).
 
     Restart 0 sits at the prior moments; W always starts from a seeded
     standard normal and the other restarts jitter the moments in
     unconstrained space. The numpy draws are the reference's, in its order.
     """
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     info = param_info(spec)
     stacked = {}

@@ -11,6 +11,7 @@ import torch
 
 __all__ = [
     "default_model_dtype",
+    "resolve_device",
     "nc_normal",
     "nc_normal_logp",
     "sc_exponential",
@@ -28,6 +29,25 @@ def default_model_dtype(device) -> torch.dtype:
     override.
     """
     return torch.float32 if torch.device(device).type == "cuda" else torch.float64
+
+
+def resolve_device(device=None, ref=None) -> torch.device:
+    """Where an entry point runs: ``device`` if given, else ``ref``'s device
+    when ``ref`` is a tensor, else the CUDA card.
+
+    The CPU is used only when the caller asks for it (``device="cpu"`` or
+    CPU tensors). Asking for CUDA where there is none raises; nothing
+    carries on on the CPU instead.
+    """
+    if device is None:
+        device = ref.device if isinstance(ref, torch.Tensor) else "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "gumbi_tpu_torch runs on a CUDA card unless asked for the CPU, and CUDA "
+            "is not available here; pass device='cpu' (or CPU tensors) to run on the CPU"
+        )
+    return device
 
 
 def nc_normal(z, mu, sigma):

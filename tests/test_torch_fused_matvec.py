@@ -1,0 +1,148 @@
+"""Port parity: the fused Gram-matvec plain versions vs the Pallas kernels.
+
+``fused_matvec_plain`` is what a CPU tensor takes through
+``fused_stationary_matvec`` and ``fused_stationary_matvec_sym``, and what
+``chip_smoke.py`` holds the CUDA kernels against on the card. Here it is
+held against the reference's Pallas kernels run in interpret mode at f32,
+at rtol 1e-5 and atol 1e-5·max|ref| (the reference's 3-pass bf16 hi/lo
+product drops the lo·lo term, ~2^-16 of each product), and against an f64
+numpy oracle. The symmetric reference runs with 128-row tiles at n = 512
+and 896, its even and odd band grids (nb = 4 and 7).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from gumbi_tpu.ops.pallas_kernels import fused_stationary_matvec as ref_matvec
+from gumbi_tpu.ops.pallas_kernels import fused_stationary_matvec_sym as ref_matvec_sym
+from gumbi_tpu.ops.pallas_kernels import FUSABLE_KERNELS as REF_FUSABLE
+from gumbi_tpu_torch.ops import hopper_kernels as hk
+
+torch.set_num_threads(2)
+
+KERNELS = ["ExpQuad", "RBF", "Matern12", "Matern32", "Matern52", "Exponential"]
+
+
+def _inputs(n, m, d, r, seed):
+    rng = np.random.default_rng(seed)
+    x1 = rng.uniform(-2, 2, (n, d)).astype(np.float32)
+    x2 = rng.uniform(-2, 2, (m, d)).astype(np.float32)
+    v = rng.normal(size=(m, r)).astype(np.float32)
+    ls = rng.uniform(0.5, 1.5, d).astype(np.float32)
+    return x1, x2, v, ls
+
+
+def _oracle(x1, x2, v, ls, kernel):
+    """f64 numpy: K from exact distances, then K @ v."""
+    a = x1.astype(np.float64) / ls
+    b = x2.astype(np.float64) / ls
+    r2 = ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1)
+    r = np.sqrt(r2 + 1e-36)
+    K = {
+        "ExpQuad": np.exp(-0.5 * r2),
+        "RBF": np.exp(-0.5 * r2),
+        "Matern12": np.exp(-r),
+        "Exponential": np.exp(-0.5 * r),
+        "Matern32": (1 + np.sqrt(3) * r) * np.exp(-np.sqrt(3) * r),
+        "Matern52": (1 + np.sqrt(5) * r + 5 * r2 / 3) * np.exp(-np.sqrt(5) * r),
+    }[kernel]
+    return K @ v.astype(np.float64), np.abs(K) @ np.abs(v.astype(np.float64))
+
+
+def _plain(x1, x2, v, ls, kernel):
+    return hk.fused_matvec_plain(torch.as_tensor(x1), torch.as_tensor(x2), torch.as_tensor(v),
+                                 torch.as_tensor(ls), kernel).numpy()
+
+
+def _check(port, ref, exact, scale):
+    np.testing.assert_allclose(port, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+    # the plain f32 version against f64: a few f32 ulps of Σ|K||v| per entry
+    assert np.all(np.abs(port - exact) <= 1e-6 * scale + 1e-30)
+
+
+def test_fusable_kernels_match_reference():
+    assert hk.FUSABLE_KERNELS == tuple(REF_FUSABLE)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_plain_matches_general_pallas(kernel, d):
+    """Ragged 37 × 23 with r = 5 (the reference pads to 128-row tiles)."""
+    x1, x2, v, ls = _inputs(37, 23, d, 5, seed=d)
+    ref = np.asarray(ref_matvec(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(v), jnp.asarray(ls), kernel,
+                                interpret=True))
+    exact, scale = _oracle(x1, x2, v, ls, kernel)
+    _check(_plain(x1, x2, v, ls, kernel), ref, exact, scale)
+
+
+@pytest.mark.parametrize("n,m,r", [(300, 130, 1), (129, 300, 65)])
+def test_plain_matches_general_pallas_ragged(n, m, r):
+    x1, x2, v, ls = _inputs(n, m, 2, r, seed=n + m)
+    ref = np.asarray(ref_matvec(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(v), jnp.asarray(ls), "Matern52",
+                                interpret=True))
+    exact, scale = _oracle(x1, x2, v, ls, "Matern52")
+    _check(_plain(x1, x2, v, ls, "Matern52"), ref, exact, scale)
+
+
+@pytest.mark.parametrize("n,kernel", [(512, "ExpQuad"), (896, "Matern32"), (300, "Exponential")],
+                         ids=["nb4", "nb7", "nb3-ragged"])
+def test_plain_matches_symmetric_pallas(n, kernel):
+    """The symmetric reference at 128-row tiles (even nb = 4, odd nb = 7 and
+    a ragged nb = 3), through the port's symmetric wrapper on CPU tensors."""
+    x, _, v, ls = _inputs(n, n, 2, 5, seed=n)
+    ref = np.asarray(ref_matvec_sym(jnp.asarray(x), jnp.asarray(v), jnp.asarray(ls), kernel, bm=128,
+                                    interpret=True))
+    before = (hk.FusedMatvec.launches, hk.FusedMatvecSym.launches)
+    port = hk.fused_stationary_matvec_sym(torch.as_tensor(x), torch.as_tensor(v), torch.as_tensor(ls), kernel).numpy()
+    assert (hk.FusedMatvec.launches, hk.FusedMatvecSym.launches) == before  # CPU tensors never launch
+    exact, scale = _oracle(x, x, v, ls, kernel)
+    _check(port, ref, exact, scale)
+
+
+def test_wrappers_on_cpu_take_plain_and_shared_lengthscale():
+    """The general wrapper on CPU tensors is the plain version; a shared
+    (one-entry) lengthscale broadcasts over d; f64 stays f64."""
+    x1, x2, v, ls = _inputs(20, 17, 3, 4, seed=9)
+    ls1 = ls[:1]
+    out = hk.fused_stationary_matvec(torch.as_tensor(x1).double(), torch.as_tensor(x2).double(),
+                                     torch.as_tensor(v).double(), torch.as_tensor(ls1).double(), "Matern12")
+    assert out.dtype == torch.float64
+    exact, _ = _oracle(x1, x2, v, np.repeat(ls1, 3), "Matern12")
+    np.testing.assert_allclose(out.numpy(), exact, rtol=1e-12, atol=1e-12)
+
+
+def test_plain_row_chunks_agree(monkeypatch):
+    """Chunking K by rows (what keeps the plain version off N×N at 50k)
+    changes nothing: 7-row chunks equal one chunk bit for bit."""
+    x1, x2, v, ls = _inputs(40, 33, 2, 3, seed=4)
+    whole = _plain(x1, x2, v, ls, "ExpQuad")
+    monkeypatch.setattr(hk, "_PLAIN_ENTRIES", 7 * 33)
+    np.testing.assert_array_equal(_plain(x1, x2, v, ls, "ExpQuad"), whole)
+
+
+def test_kernel_launchers_refuse_what_they_cannot_take():
+    """The CUDA route never falls back: CPU or f64 tensors raise at the
+    launcher, an unknown kernel raises, and so does a gradient request."""
+    x = torch.zeros(8, 2)
+    v = torch.zeros(8, 3)
+    with pytest.raises(TypeError, match="CUDA float32"):
+        hk._launch_fused_matvec(x, x, v, torch.ones(2), "ExpQuad")
+    with pytest.raises(TypeError, match="CUDA float32"):
+        hk._launch_fused_matvec_sym(x, v, torch.ones(2), "Matern52")
+    with pytest.raises(ValueError, match="not one of"):
+        hk.fused_stationary_matvec(x, x, v, torch.ones(2), "Periodic")
+    with pytest.raises(RuntimeError, match="forward-only"):
+        hk._launch_fused_matvec(x, x, v, torch.ones(2, requires_grad=True), "ExpQuad")
+
+
+def test_sym_matvec_fits_gate():
+    """1 GiB of band scratch: N = 50,000 at r = 65 (PCG) and 64 (LOVE) fit,
+    r = 129 does not; small n always fits."""
+    assert hk.sym_matvec_fits(50_000, 65) and hk.sym_matvec_fits(50_000, 64)
+    assert not hk.sym_matvec_fits(50_000, 129)
+    assert hk.sym_matvec_fits(300, 513)
+    nb = -(-50_000 // hk.SYM_TILE)
+    assert 2 * (nb // 2 + 1) * 50_000 * 65 * 4 <= hk.SYM_SCRATCH_BYTES_MAX

@@ -134,7 +134,8 @@ def test_fit_gp_map_matches_reference_with_mask_and_noise_mult():
                               jnp.asarray(lb), u0s, maxiter=100, mask=jnp.asarray(mask),
                               noise_mult=jnp.asarray(nm))
     u0t = {k: torch.tensor(np.asarray(v)) for k, v in u0s.items()}
-    pt, ft, _ = to.fit_gp_map(spec, xc, xk, y, la, lb, u0t, maxiter=100, mask=mask, noise_mult=nm)
+    pt, ft, _ = to.fit_gp_map(spec, xc, xk, y, la, lb, u0t, maxiter=100, mask=mask, noise_mult=nm,
+                              device="cpu")
     assert abs(float(ft) - float(fj)) <= BASIN_TOL * int(mask.sum()), (float(ft), float(fj))
     assert set(pt) == set(pj) and all(float(v.min()) > 0 for k, v in pt.items() if k.startswith("κ_"))
 
@@ -148,6 +149,26 @@ def test_fit_casts_inputs_to_model_dtype(in_dtype):
     u0s = {k: torch.tensor(np.asarray(v, in_dtype))
            for k, v in jp.initial_params(jspec, la, lb, 2, seed=0).items()}
     ut, ft, _ = to.fit_kron_map(spec, xc.astype(in_dtype), Y.astype(in_dtype), la.astype(in_dtype),
-                                lb.astype(in_dtype), u0s, maxiter=5)
+                                lb.astype(in_dtype), u0s, maxiter=5, device="cpu")
     assert all(v.dtype == torch.float64 and v.device.type == "cpu" for v in ut.values())
     assert np.isfinite(float(ft))
+
+
+def test_entry_points_without_device_run_on_cuda_or_raise():
+    """With numpy inputs and no ``device``, the fit entry points and
+    ``initial_params`` go to the CUDA card; on a host without one they raise
+    instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device exists")
+    jspec, xc, Y, la, lb = _kron_problem(n=8)
+    spec = spec_from_reference(jspec)
+    from gumbi_tpu_torch.ops.priors import initial_params
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        initial_params(spec, la, lb, n_restarts=2, seed=0)
+    u0s = initial_params(spec, la, lb, n_restarts=2, seed=0, device="cpu")
+    xk = np.zeros((xc.shape[0], 1), np.int32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        to.fit_gp_map(spec, xc, xk, Y[:, 0], la, lb, {k: v.numpy() for k, v in u0s.items()}, maxiter=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        to.fit_kron_map(spec, xc, Y, la, lb, u0s, maxiter=2)  # CPU starts do not pick the device

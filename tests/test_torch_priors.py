@@ -51,12 +51,12 @@ def test_param_info_matches(jspec):
 def test_initial_params_same_seed_same_arrays(jspec):
     la, lb = np.array([1.5, 2.0, 3.0])[: jspec.n_ls], np.array([0.5, 1.0, 2.0])[: jspec.n_ls]
     ref = jp.initial_params(jspec, la, lb, n_restarts=5, seed=3)
-    port = tp.initial_params(spec_from_reference(jspec), la, lb, n_restarts=5, seed=3)
+    port = tp.initial_params(spec_from_reference(jspec), la, lb, n_restarts=5, seed=3, device="cpu")
     assert list(port) == list(ref)
     for k in ref:
         assert port[k].dtype == torch.float64
         np.testing.assert_array_equal(port[k].numpy(), np.asarray(ref[k]))
-    f32 = tp.initial_params(spec_from_reference(jspec), la, lb, 5, 3, dtype=torch.float32)
+    f32 = tp.initial_params(spec_from_reference(jspec), la, lb, 5, 3, dtype=torch.float32, device="cpu")
     assert all(v.dtype == torch.float32 for v in f32.values())
 
 
