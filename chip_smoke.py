@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (gumbi_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--dense-breakdown]
 
 Phases (any failure raises and ends the run with a nonzero exit code):
 
@@ -35,25 +35,53 @@ Phases (any failure raises and ends the run with a nonzero exit code):
    dense Cholesky one (≤ 5e-4 relative) and LOVE variances at rank 512
    against the exact posterior diagonal (median ≤ 5%).
 6. The large-N iterative path of ``bench_iterative50k.py`` at N = 50,000
-   (f32, block 2,500, rank 512, 64 probes): a first pass of the staged
-   campaign (32 coarse Cholesky restarts on 2,048 rows → L-BFGS polish on
-   the iterative objective → LOVE cache → 100×100 grid), the rank-512
-   pivoted Cholesky timed with CUDA events at the bench point, then, with
-   every launch count at 0, the main path: one value+grad at the bench point
+   (f32, block 2,500, rank 512, 64 probes): the rank-512 pivoted Cholesky
+   timed with CUDA events at the bench point, then, with every launch count
+   at 0, the main path: one value+grad at the bench point
    ls = (0.30, 0.35), one at ls = (0.10, 0.12) where the f32
-   factorization is not exhausted and PCG + SLQ run, and a warm campaign
-   pass. Every polish evaluation's regime and CG iterations are logged.
+   factorization is not exhausted and PCG + SLQ run, and one pass of the
+   staged campaign (32 coarse Cholesky restarts on 2,048 rows → L-BFGS
+   polish on the iterative objective → LOVE cache → 100×100 grid). Every
+   polish evaluation's regime and CG iterations are logged.
    Checks: both values finite and trusted, PCG run at the second point,
    grid mean/var finite of shape (10000,), var ≥ 0,
    the f32 objective at the fit within 0.005 nats/point of an f64 one on
    the plain path, and each kernel launched on that path.
-7. Print the card, the kernels' JSON line, then ``{"ok": true, ...}`` last.
+7. Hold the blocked Cholesky kernel against its plain version, the library
+   factorization and an f64 factor: SPD inputs X·Xᵀ/64 + 2I from a numpy
+   seed at D ∈ {1, 2, 3}, N ∈ {256, 512, 768, 5120} and (1, 1024),
+   (1, 2048), (1, 16384), max |L_kernel − L_plain| ≤ 5e-5·max(|L|, 1) and
+   the error against f64 at most twice the f32 library's; the Gram matrices
+   of the Kronecker path (2, 5120, 5120) and of the dense path's coarse
+   stage (1, 1024, 1024) and polish (1, 16384, 16384) against f64 by the
+   same rule; a non-PD batch entry gives NaN there and right factors
+   elsewhere. Time plain, kernel, library, kernel at (1, 2048, 2048),
+   (2, 5120, 5120) and (1, 16384, 16384).
+8. The exact dense path of ``bench_dense50k.py``'s single-accelerator
+   configuration (N = 16,384, one ExpQuad ARD term over 2 dims, 8 restarts,
+   coarse 1,024 rows × 32 iterations, polish 12 iterations at full N), then
+   ``posterior_cache``, ``predict_diag_chunked`` on the 100×100 grid and
+   ``draw_samples`` of 4 draws at 1,024 grid points, at f32: once with the
+   library factorization at the ``linalg.safe_cholesky`` seam, once with
+   ``hopper_chol.seam_cholesky`` there (the counted pass). Checks: both
+   fitted objectives within 0.005 nats/point of each other and of an f64
+   evaluation, ``rbf_gram`` and the Cholesky kernel launched, variances
+   finite and ≥ 0. Times one value+grad at the fitted point with each
+   factor, and the Kronecker objective's value and value+grad at D = 2,
+   N = 5,120 with each factor. With ``--dense-breakdown`` it also times the
+   steps of that value+grad one by one (Gram, factor, solves, A⁻¹, Gram
+   backward); the default run leaves that out.
+8b. One f64 value+grad of ``map_neg_logp`` and of ``map_neg_logp_blocked``
+   at N = 16,384: values and gradients agree to rtol 1e-9; prints each
+   one's time and peak memory.
+9. Print the card, the kernels' JSON line, then ``{"ok": true, ...}`` last.
 
 Exits nonzero, printing no result, where CUDA is unavailable.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -65,7 +93,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import gumbi_tpu_torch.ops.linalg as linalg  # noqa: E402
 from gumbi_tpu_torch.ops import (  # noqa: E402
+    BlockedChol,
     CoregTerm,
     FusedMatvec,
     FusedMatvecSym,
@@ -73,9 +103,11 @@ from gumbi_tpu_torch.ops import (  # noqa: E402
     GPTerm,
     IterConfig,
     RbfGram,
+    cholesky_plain,
     coarse_restart_map,
     constrain,
     draw_probes,
+    draw_samples,
     fit_kron_map,
     fused_matvec_plain,
     fused_stationary_matvec,
@@ -93,15 +125,20 @@ from gumbi_tpu_torch.ops import (  # noqa: E402
     lbfgs_backtracking_minimize,
     ls_prior_params,
     map_neg_logp,
+    map_neg_logp_blocked,
     multi_restart_minimize,
     noise_diag,
+    posterior_cache,
+    predict_diag_chunked,
     rbf_gram,
     rbf_gram_plain,
 )
-from gumbi_tpu_torch.ops import _build  # noqa: E402
+from gumbi_tpu_torch.ops import _build, hopper_chol  # noqa: E402
+from gumbi_tpu_torch.ops.hopper_chol import _chol_lib  # noqa: E402
 from gumbi_tpu_torch.ops.hopper_kernels import SYM_TILE, _fused_lib, _rbf_lib  # noqa: E402
 from gumbi_tpu_torch.ops.iterative import _row_fn, pivoted_cholesky  # noqa: E402
-from gumbi_tpu_torch.ops.mll import DEFAULT_JITTER  # noqa: E402
+from gumbi_tpu_torch.ops.kronecker import _continuous_gram, _whitened_eig, _whitened_systems, kron_parts  # noqa: E402
+from gumbi_tpu_torch.ops.mll import DEFAULT_JITTER, _noisy_gram  # noqa: E402
 
 # bench.py's workload (same seeds, spec and stage sizes)
 N_LOCS = 5120
@@ -146,7 +183,7 @@ def phase0_environment():
     return card
 
 
-SOURCES = ("rbf_gram", "fused_matvec")
+SOURCES = ("rbf_gram", "fused_matvec", "blocked_chol")
 
 
 def phase1_build():
@@ -154,6 +191,7 @@ def phase1_build():
     _build.build_libraries(SOURCES)
     _rbf_lib()
     _fused_lib()
+    _chol_lib()
     build_s = time.perf_counter() - t0
     log(f"[build] {', '.join(s + '.cu' for s in SOURCES)} built (one nvcc each, in parallel) "
         f"and loaded in {build_s:.2f} s")
@@ -241,6 +279,18 @@ def phase2_kernel_vs_plain():
     return max_abs, times
 
 
+def _ls_prior_from_subsample(sub):
+    """The benches' lengthscale prior: ``ls_prior_params`` of each dimension's
+    smallest (at least 0.01) and largest pairwise distance within ``sub``."""
+    lowers, uppers = [], []
+    for j in range(sub.shape[1]):
+        dd = np.abs(sub[:, j : j + 1] - sub[:, j : j + 1].T)[np.triu_indices(len(sub), 1)]
+        dd = dd[dd > 0]
+        lowers.append(max(float(dd.min()), 0.01))
+        uppers.append(float(dd.max()))
+    return ls_prior_params(lowers, uppers)
+
+
 def make_problem(n_locs, device, dtype):
     """bench.py's make_problem, rebuilt with numpy: same seeds, same spec."""
     rng = np.random.default_rng(0)
@@ -259,13 +309,7 @@ def make_problem(n_locs, device, dtype):
         noise_coreg=CoregTerm(name="Output_noise", col=0, d_out=2),
     )
     sub = Xb[rng.choice(n_locs, min(512, n_locs), replace=False)]
-    lowers, uppers = [], []
-    for j in range(2):
-        dd = np.abs(sub[:, j : j + 1] - sub[:, j : j + 1].T)[np.triu_indices(len(sub), 1)]
-        dd = dd[dd > 0]
-        lowers.append(max(float(dd.min()), 0.01))
-        uppers.append(float(dd.max()))
-    ls_alpha, ls_beta = ls_prior_params(lowers, uppers)
+    ls_alpha, ls_beta = _ls_prior_from_subsample(sub)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
     return spec, t(Xb), t(Y), ls_alpha, ls_beta
 
@@ -593,13 +637,7 @@ def campaign_problem(n, device, dtype):
     yz = (y - y.mean()) / y.std()
     rng = np.random.default_rng(0)
     sub = Xz[rng.choice(n, min(512, n), replace=False)]
-    lowers, uppers = [], []
-    for j in range(2):
-        dd = np.abs(sub[:, j : j + 1] - sub[:, j : j + 1].T)[np.triu_indices(len(sub), 1)]
-        dd = dd[dd > 0]
-        lowers.append(max(float(dd.min()), 0.01))
-        uppers.append(float(dd.max()))
-    la, lb = ls_prior_params(lowers, uppers)
+    la, lb = _ls_prior_from_subsample(sub)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
     return t(Xz), t(yz), la, lb
 
@@ -735,9 +773,9 @@ def phase5_anchor():
 
 
 def phase6_iterative():
-    """First campaign pass, then the counted main path (bench point +
-    warm campaign), then its checks."""
-    _log_campaign("first pass", run_iter_campaign("cuda", torch.float32))
+    """The counted main path (two value+grads, then the staged campaign,
+    run once: each pass takes ~100-110 s, and a second one only repeated
+    the first's evaluations), then its checks."""
     time_pivoted_cholesky()
     for k in (RbfGram, FusedMatvec, FusedMatvecSym):
         k.launches = 0
@@ -751,8 +789,8 @@ def phase6_iterative():
             f"CG iters {b['iters']} | rel_res {b['rel_res']:.3e} | "
             f"{'exhausted' if b['exhausted'] else 'CG'} regime | value+grad {b['wall_s']:.3f} s")
     log(f"[iter] launches of the two value+grads: {after_objective}")
-    _log_campaign("warm pass", r)
-    log(f"[iter] main path launches (two value+grads + warm campaign): {launches}")
+    _log_campaign("single pass", r)
+    log(f"[iter] main path launches (two value+grads + the campaign, run once): {launches}")
     for b in (bench, cgpt):
         assert np.isfinite(b["value"]), f"iterative objective at ls={b['ls']} is not finite"
         assert b["exhausted"] or b["rel_res"] <= 10 * ITER_TOL, f"solve at ls={b['ls']} not trusted: {b}"
@@ -789,6 +827,381 @@ def phase6_iterative():
     return launches, bench, r
 
 
+# ------------------------------------------------------------------
+# Phase 7: the blocked Cholesky kernel against plain, library and f64
+# ------------------------------------------------------------------
+
+CHOL_TOL = 5e-5  # max |L_kernel − L_plain| / max(|L|, 1), tests/test_pallas_chol.py's tolerance
+CHOL_F64_FACTOR = 2.0  # the kernel's error against f64 may be at most this many times the f32 library's
+DENSE_N, DENSE_RESTARTS = 16_384, 8
+DENSE_COARSE_N, DENSE_COARSE_ITERS, DENSE_POLISH_ITERS = 1024, 32, 12
+DENSE_DRAW_GRID, DENSE_DRAWS = 32, 4  # draw_samples: 4 draws at 32 × 32 = 1,024 grid points
+
+
+def _spd_input(D, n, seed=0):
+    """probe_pallas_chol.py's input, X·Xᵀ/64 + 2I with X (D, n, 64) standard
+    normal from a numpy seed; the product is taken on the card."""
+    X = torch.as_tensor(np.random.default_rng(seed).normal(size=(D, n, 64)).astype(np.float32)).cuda()
+    return X @ X.transpose(1, 2) / 64 + 2.0 * torch.eye(n, device="cuda")
+
+
+def _chol_errors(label, A, spd):
+    """Factor ``A`` by kernel, plain version and library (f32) and by the
+    library at f64; log and check. Returns max |L_kernel − L_plain|."""
+    before = BlockedChol.launches
+    L = hopper_chol.cholesky(A)
+    torch.cuda.synchronize()
+    assert BlockedChol.launches == before + 1, f"{label}: the dispatcher did not launch the kernel"
+    Lp = cholesky_plain(A)
+    Ll = torch.linalg.cholesky(A)
+    L64 = torch.linalg.cholesky(A.double())
+    scale = max(float(L64.abs().max()), 1.0)
+    d_kp = float((L - Lp).abs().max())
+    e_k, e_p, e_l = (float((x - L64).abs().max()) for x in (L, Lp, Ll))
+    upper = float(L.triu(1).abs().max())
+    log(f"[chol] {label}: max|kernel-plain| {d_kp:.3e} (scale {scale:.2f}) | max error vs f64: kernel {e_k:.3e}, "
+        f"plain {e_p:.3e}, library {e_l:.3e} | upper triangle max {upper:.1e}")
+    assert upper == 0.0, f"{label}: the kernel's factor has entries above the diagonal"
+    assert np.isfinite(e_k) and e_k <= CHOL_F64_FACTOR * e_l, \
+        f"{label}: kernel error vs f64 {e_k} exceeds {CHOL_F64_FACTOR} x the library's {e_l}"
+    if spd:
+        assert d_kp <= CHOL_TOL * scale, f"{label}: kernel and plain disagree by {d_kp}"
+    return d_kp
+
+
+def _chol_bound(D, n):
+    """(bound_ms, bound_by): D·n³/3 flops at the FP32 peak against A read
+    and L written once."""
+    ops_s = D * n**3 / 3.0 / FP32_PEAK
+    bytes_s = 8.0 * D * n * n / HBM_BYTES_PER_S
+    return (1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes")
+
+
+def _dense_gram_input(coarse=False):
+    """K + σ²I + jitter·I of the dense path (ls = (0.30, 0.35), η = 1,
+    σ = 0.1) with a leading batch axis of 1: at N = 16,384, or on the coarse
+    stage's 1,024-row subsample."""
+    spec, X, y, _, _, rng = make_dense_problem(DENSE_N, np.float32)
+    if coarse:
+        X = X[np.sort(rng.choice(DENSE_N, DENSE_COARSE_N, replace=False))]
+    xc = torch.as_tensor(X, device="cuda")
+    xk = torch.zeros((X.shape[0], 0), dtype=torch.long, device="cuda")
+    params = {"ls_total": torch.tensor([0.30, 0.35], device="cuda"), "η_total": torch.ones((), device="cuda"),
+              "σ": torch.tensor(0.10, device="cuda")}
+    return _noisy_gram(spec, params, xc, xk)[None]
+
+
+def _kron_gram_input():
+    """The (2, 5120, 5120) whitened systems ωᵢ·Kx + I of the Kronecker
+    objective at bench.py's first start."""
+    spec, xc, Y, la, lb = make_problem(N_LOCS, "cuda", torch.float32)
+    u0s = initial_params(spec, la, lb, n_restarts=1, seed=0, dtype=torch.float32, device="cuda")
+    params = constrain({k: v[0] for k, v in u0s.items()})
+    B, s2 = kron_parts(spec, params)
+    _, ω, _ = _whitened_eig(B, s2)
+    return _whitened_systems(_continuous_gram(spec, params, xc, xc), ω).contiguous()
+
+
+def phase7_chol_vs_plain():
+    max_abs = 0.0
+    with torch.no_grad():
+        # (1, 1024) is the coarse stage's and draw_samples' shape, (1, 16384) the polish's
+        shapes = [(D, n) for n in (256, 512, 768, 5120) for D in (1, 2, 3)]
+        for D, n in shapes + [(1, DENSE_COARSE_N), (1, 2048), (1, DENSE_N)]:
+            max_abs = max(max_abs, _chol_errors(f"spd D={D} N={n}", _spd_input(D, n), spd=True))
+        _chol_errors(f"Kronecker Gram D=2 N={N_LOCS}", _kron_gram_input(), spd=False)
+        _chol_errors(f"dense coarse Gram D=1 N={DENSE_COARSE_N}", _dense_gram_input(coarse=True), spd=False)
+        _chol_errors(f"dense Gram D=1 N={DENSE_N}", _dense_gram_input(), spd=False)
+
+        # a non-PD batch entry: NaN there, right factors elsewhere
+        A = _spd_input(3, 512)
+        A[1, 300, 300] = -5.0
+        L = hopper_chol.cholesky(A)
+        torch.cuda.synchronize()
+        nan = [bool(torch.isnan(L[i]).any()) for i in range(3)]
+        ref = torch.linalg.cholesky(A[[0, 2]])
+        ok = float((L[[0, 2]] - ref).abs().max())
+        log(f"[chol] non-PD entry 1 of 3: NaN per entry {nan} | others vs library {ok:.3e}")
+        assert nan == [False, True, False], f"NaN in the wrong batch entries: {nan}"
+        assert ok <= CHOL_TOL * max(float(ref.abs().max()), 1.0), f"entries beside the non-PD one are off by {ok}"
+
+        times = {}
+        # (1, 2048, 2048) is 16 panels with little trailing work: the cost
+        # of the per-panel chain (diagonal CTA, strip, three launches)
+        for D, n, reps in [(1, 2048, 20), (2, N_LOCS, 20), (1, DENSE_N, 5)]:
+            A = _spd_input(D, n)
+            plain = lambda: cholesky_plain(A)  # noqa: E731
+            kern = lambda: hopper_chol.cholesky(A)  # noqa: E731
+            lib = lambda: torch.linalg.cholesky(A)  # noqa: E731
+            p, k1, l, k2 = _time_ms(plain, reps), _time_ms(kern, reps), _time_ms(lib, reps), _time_ms(kern, reps)
+            k = (k1 + k2) / 2
+            bound, by = _chol_bound(D, n)
+            flops = D * n**3 / 3.0
+            log(f"[chol] time ({D}, {n}, {n}): kernel {k:.3f} ms ({k1:.3f}, {k2:.3f}; "
+                f"{flops / (k * 1e-3) / 1e12:.2f} TFLOP/s) | plain {p:.3f} ms | library "
+                f"(torch.linalg.cholesky) {l:.3f} ms | bound {bound:.3f} ms ({by}) | kernel/library {k / l:.2f}")
+            times[(D, n)] = (k, p, l, bound, by)
+            del A
+    return max_abs, times
+
+
+# ------------------------------------------------------------------
+# Phases 8 and 8b: the exact dense path (bench_dense50k.py, one accelerator)
+# ------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def cholesky_seam(fn):
+    """Put ``fn`` at the dense path's one factorization seam,
+    ``linalg.safe_cholesky``, and restore the library one on the way out."""
+    orig = linalg.safe_cholesky
+    linalg.safe_cholesky = fn
+    try:
+        yield
+    finally:
+        linalg.safe_cholesky = orig
+
+
+def make_dense_problem(n, np_dtype):
+    """bench_dense50k.py's problem, rebuilt with numpy: same seed, same draws
+    in the same order. Returns the generator too: the coarse subsample is
+    its next draw."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-2, 2, size=(n, 2)).astype(np_dtype)
+    y = (np.sin(1.3 * X[:, 0]) * np.cos(0.9 * X[:, 1]) + rng.normal(0, 0.1, n)).astype(np_dtype)
+    spec = GPSpec(terms=(GPTerm(suffix="total", kernel="ExpQuad"),), d_cont=2, ard=True)
+    sub = X[rng.choice(n, min(512, n), replace=False)]
+    la, lb = _ls_prior_from_subsample(sub)
+    return spec, X, y, la, lb, rng
+
+
+def run_dense_campaign(device, dtype, n=DENSE_N, coarse_n=DENSE_COARSE_N, n_restarts=DENSE_RESTARTS,
+                       coarse_iters=DENSE_COARSE_ITERS, polish_iters=DENSE_POLISH_ITERS, grid=GRID,
+                       draw_grid=DENSE_DRAW_GRID, n_draws=DENSE_DRAWS, chol=None):
+    """The exact dense fit and posterior of bench_dense50k.py's single-device
+    run through the port's ops: ``n_restarts`` coarse L-BFGS restarts of
+    ``map_neg_logp`` on a ``coarse_n``-row subsample (one after another,
+    where the reference maps them) → polish at full N from the coarse winner
+    → ``posterior_cache`` → ``predict_diag_chunked`` on a ``grid``² grid →
+    ``draw_samples`` at a ``draw_grid``² grid. Grid variances and draws are
+    predictive (``with_noise=True``): the noise-free covariance of a dense
+    grid plus the default 1e-6 jitter is not positive definite at f32, in
+    either package. ``chol`` replaces the factorization at the
+    ``linalg.safe_cholesky`` seam for the whole run."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    spec, X, y_np, la, lb, rng = make_dense_problem(n, np_dtype)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    xc, y, la_t, lb_t = t(X), t(y_np), t(la), t(lb)
+    xk = torch.zeros((n, 0), dtype=torch.long, device=device)
+    u0s = initial_params(spec, la, lb, n_restarts=n_restarts, seed=0, dtype=dtype, device=device)
+    subi = np.sort(rng.choice(n, min(coarse_n, n), replace=False))
+    sub_t = torch.as_tensor(subi, device=device)
+    xc_c, xk_c, y_c = xc[sub_t], xk[sub_t], y[sub_t]
+    evals = {"coarse": 0, "polish": 0}
+
+    def counted(stage, x, k, yy):
+        def objective(u):
+            evals[stage] += 1
+            return map_neg_logp(spec, u, x, k, yy, la_t, lb_t)
+        return objective
+
+    def grid_points(m):
+        g = np.linspace(-2, 2, m).astype(np_dtype)
+        G1, G2 = np.meshgrid(g, g, indexing="ij")
+        pts = t(np.column_stack([G1.ravel(), G2.ravel()]))
+        return pts, torch.zeros((pts.shape[0], 0), dtype=torch.long, device=device)
+
+    with cholesky_seam(chol) if chol is not None else contextlib.nullcontext():
+        _sync(device)
+        t0 = time.perf_counter()
+        u_c, f_c, aux_c = multi_restart_minimize(counted("coarse", xc_c, xk_c, y_c), u0s, maxiter=coarse_iters,
+                                                 tol=1e-6)
+        _sync(device)
+        t1 = time.perf_counter()
+        u_best, f_best, polish_n = lbfgs_backtracking_minimize(counted("polish", xc, xk, y), u_c,
+                                                               maxiter=polish_iters)
+        _sync(device)
+        t2 = time.perf_counter()
+        params = constrain(u_best)
+        with torch.no_grad():
+            cache = posterior_cache(spec, params, xc, xk, y)
+            _sync(device)
+            t3 = time.perf_counter()
+            xg, xkg = grid_points(grid)
+            mean, var = predict_diag_chunked(spec, params, cache, xg, xkg)
+            _sync(device)
+            t4 = time.perf_counter()
+            xd, xkd = grid_points(draw_grid)
+            gen = torch.Generator(device=device).manual_seed(0)
+            draws = draw_samples(spec, params, cache, xd, xkd, gen, n_samples=n_draws, with_noise=True)
+            _sync(device)
+            t5 = time.perf_counter()
+    return dict(spec=spec, xc=xc, xk=xk, y=y, la=la, lb=lb, u0s=u0s, subi=subi, u_coarse=u_c,
+                f_coarse=float(f_c), aux_c=aux_c, u_best=u_best, f_best=float(f_best), polish_iters=polish_n,
+                evals=evals, cache=cache, xg=xg, mean=mean, var=var, xd=xd, draws=draws,
+                phases={"coarse_s": t1 - t0, "polish_s": t2 - t1, "cache_s": t3 - t2, "predict_s": t4 - t3,
+                        "draw_s": t5 - t4})
+
+
+def _log_dense(label, r):
+    ph = r["phases"]
+    log(f"[dense] campaign {label}: coarse {ph['coarse_s']:.3f} s ({len(r['aux_c']['iters'])} restarts @"
+        f"{len(r['subi'])}, iters {r['aux_c']['iters'].tolist()}, {r['evals']['coarse']} evaluations, winner "
+        f"{r['aux_c']['best_restart']}) | polish {ph['polish_s']:.3f} s ({r['polish_iters']} iterations, "
+        f"{r['evals']['polish']} evaluations) | cache {ph['cache_s']:.3f} s | predict {ph['predict_s']:.3f} s "
+        f"({r['xg'].shape[0]}-pt grid) | draws {ph['draw_s']:.3f} s ({tuple(r['draws'].shape)}) | total "
+        f"{sum(ph.values()):.3f} s")
+    log(f"[dense] MAP {label}: ls {constrain(r['u_best'])['ls_total'].tolist()} | f_best {r['f_best']:.4f}")
+
+
+def _value_and_grad(objective, u):
+    leaves = {k: v.detach().requires_grad_(True) for k, v in u.items()}
+    value = objective(leaves)
+    grads = torch.autograd.grad(value, list(leaves.values()))
+    return value.detach(), dict(zip(leaves, grads))
+
+
+def _time_host(fn, reps):
+    """Mean host-clock seconds of ``fn`` over ``reps`` calls after a warm one,
+    each ending in a synchronise; and the peak device memory of one call."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps, torch.cuda.max_memory_allocated()
+
+
+def phase8_dense(breakdown=False):
+    """The dense campaign with the library factor, then (counted) with the
+    hand factor at the seam; then its checks and timings. ``breakdown`` adds
+    the step-by-step times of one value+grad."""
+    stock = run_dense_campaign("cuda", torch.float32)
+    _log_dense("library factor", stock)
+    RbfGram.launches = 0
+    BlockedChol.launches = 0
+    hand = run_dense_campaign("cuda", torch.float32, chol=hopper_chol.seam_cholesky)
+    launches = {"rbf_gram": RbfGram.launches, "blocked_cholesky": BlockedChol.launches}
+    _log_dense("hand factor", hand)
+    log(f"[dense] main path launches (hand-factor campaign): {launches}")
+    assert linalg.safe_cholesky.__module__ == linalg.__name__, "the seam was not restored"
+    for name, c in launches.items():
+        assert c > 0, f"{name} was launched no time on the dense path"
+
+    n = DENSE_N
+    f64 = {}
+    for label, r in (("library", stock), ("hand", hand)):
+        mean, var, draws = r["mean"], r["var"], r["draws"]
+        assert mean.shape == (GRID * GRID,) and var.shape == (GRID * GRID,), (mean.shape, var.shape)
+        assert draws.shape == (DENSE_DRAWS, DENSE_DRAW_GRID**2), draws.shape
+        assert bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all()) and bool((var >= 0).all())
+        assert bool(torch.isfinite(draws).all()), f"{label}: non-finite posterior draws"
+        assert np.isfinite(r["f_best"]), f"{label}: the polish never evaluated finite"
+        with torch.no_grad():
+            u64 = {k: v.double() for k, v in r["u_best"].items()}
+            f64[label] = float(map_neg_logp(r["spec"], u64, r["xc"].double(), r["xk"], r["y"].double(),
+                                            r["la"], r["lb"]))
+        per_pt = abs(r["f_best"] - f64[label]) / n
+        log(f"[dense] neg_logp at the {label}-factor fit: f32 {r['f_best']:.4f} | f64 {f64[label]:.4f} | |diff| "
+            f"{per_pt:.2e} nats/pt (tol {BASIN_TOL}) | grid mean [{float(mean.min()):.3f}, {float(mean.max()):.3f}] "
+            f"var [{float(var.min()):.2e}, {float(var.max()):.2e}]")
+        assert per_pt <= BASIN_TOL, f"{label}: f32 and f64 objectives differ by {per_pt} nats/pt"
+    between = abs(stock["f_best"] - hand["f_best"]) / n
+    dmean = float((stock["mean"] - hand["mean"]).abs().max())
+    log(f"[dense] library vs hand fit: |diff| {between:.2e} nats/pt (tol {BASIN_TOL}) | max|dmean| on the grid "
+        f"{dmean:.3e}")
+    assert between <= BASIN_TOL, f"the two fits differ by {between} nats/pt"
+
+    # one value+grad of the full-N objective at the fitted point, each factor
+    r = stock
+    la_t, lb_t = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (r["la"], r["lb"]))
+    objective = lambda u: map_neg_logp(r["spec"], u, r["xc"], r["xk"], r["y"], la_t, lb_t)  # noqa: E731
+    vg = lambda: _value_and_grad(objective, r["u_best"])  # noqa: E731
+    s1, mem_s = _time_host(vg, 3)
+    with cholesky_seam(hopper_chol.seam_cholesky):
+        h1, mem_h = _time_host(vg, 3)
+        h2, _ = _time_host(vg, 3)
+    s2, _ = _time_host(vg, 3)
+    log(f"[dense] value+grad at the fit, N={n} f32: library factor {(s1 + s2) / 2:.4f} s ({s1:.4f}, {s2:.4f}; "
+        f"peak {mem_s / 2**30:.2f} GiB) | hand factor {(h1 + h2) / 2:.4f} s ({h1:.4f}, {h2:.4f}; peak "
+        f"{mem_h / 2**30:.2f} GiB)")
+    if breakdown:
+        _dense_breakdown(r)
+
+    # the probe's other shape: the Kronecker objective at D = 2, N = 5,120
+    spec, xc, Y, la, lb = make_problem(N_LOCS, "cuda", torch.float32)
+    u0s = initial_params(spec, la, lb, n_restarts=1, seed=0, dtype=torch.float32, device="cuda")
+    u0 = {k: v[0] for k, v in u0s.items()}
+    kobj = lambda u: kron_neg_logp(spec, u, xc, Y, la, lb)  # noqa: E731
+
+    def kval():
+        with torch.no_grad():
+            return kobj(u0)
+
+    for label, seam in (("library", None), ("hand", hopper_chol.seam_cholesky)):
+        with cholesky_seam(seam) if seam is not None else contextlib.nullcontext():
+            tv, _ = _time_host(kval, 10)
+            tg, _ = _time_host(lambda: _value_and_grad(kobj, u0), 10)
+            f = float(kval())
+        log(f"[dense] Kronecker objective D=2 N={N_LOCS}, {label} factor: value {tv * 1e3:.2f} ms | value+grad "
+            f"{tg * 1e3:.2f} ms | f={f:.3f}")
+    return launches, (s1 + s2) / 2, (h1 + h2) / 2
+
+
+def _dense_breakdown(r):
+    """CUDA-event times of the steps of one f32 value+grad at the fit:
+    Gram, factor, the two solves for α, L⁻¹, L⁻ᵀL⁻¹, and the Gram's backward."""
+    spec, xc, xk, y = r["spec"], r["xc"], r["xk"], r["y"]
+    with torch.no_grad():
+        params = constrain(r["u_best"])
+        t_gram = _time_ms(lambda: _noisy_gram(spec, params, xc, xk), 3)
+        A = _noisy_gram(spec, params, xc, xk)
+        t_fac = _time_ms(lambda: linalg.safe_cholesky(A), 3)
+        t_hand = _time_ms(lambda: hopper_chol.seam_cholesky(A), 3)
+        L = linalg.safe_cholesky(A)
+        del A
+        t_alpha = _time_ms(lambda: linalg.cho_solve(L, y[:, None]), 3)
+        eye = torch.eye(L.shape[0], device="cuda")
+        t_linv = _time_ms(lambda: torch.linalg.solve_triangular(L, eye, upper=False), 3)
+        Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+        del eye, L
+        t_ainv = _time_ms(lambda: Linv.T @ Linv, 3)
+        del Linv
+    p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    K = gram(spec, p, xc, xk, xc, xk)
+    gbar = torch.ones_like(K)
+    t_bwd = _time_ms(lambda: torch.autograd.grad(K, list(p.values()), gbar, retain_graph=True, allow_unused=True), 3)
+    log(f"[dense] steps of one value+grad, N={DENSE_N} f32 (CUDA events, mean of 3): Gram+noise {t_gram:.2f} ms | "
+        f"factor: library {t_fac:.2f} ms, hand {t_hand:.2f} ms | alpha (two solves) {t_alpha:.2f} ms | "
+        f"L^-1 (triangular solve of I) {t_linv:.2f} ms | L^-T L^-1 {t_ainv:.2f} ms | Gram backward {t_bwd:.2f} ms")
+
+
+def phase8b_blocked_backward():
+    """One f64 value+grad of the dense and of the blocked-backward objective
+    at N = 16,384 (bench_dense50k.py's BENCH_DTYPE=float64 BENCH_FACT_ONLY=1)."""
+    spec, X, y_np, la, lb, _ = make_dense_problem(DENSE_N, np.float64)
+    xc, y = torch.as_tensor(X, device="cuda"), torch.as_tensor(y_np, device="cuda")
+    xk = torch.zeros((DENSE_N, 0), dtype=torch.long, device="cuda")
+    u0s = initial_params(spec, la, lb, n_restarts=DENSE_RESTARTS, seed=0, dtype=torch.float64, device="cuda")
+    u0 = {k: v[0] for k, v in u0s.items()}
+    out = {}
+    for label, fn in (("dense", map_neg_logp), ("blocked", map_neg_logp_blocked)):
+        objective = lambda u: fn(spec, u, xc, xk, y, la, lb)  # noqa: E731,B023
+        secs, peak = _time_host(lambda: out.__setitem__(label, _value_and_grad(objective, u0)), 1)  # noqa: B023
+        log(f"[dense] f64 value+grad N={DENSE_N}, {label} backward: {secs:.4f} s | peak memory "
+            f"{peak / 2**30:.2f} GiB | value {float(out[label][0]):.6f}")
+        out[label + "_s"], out[label + "_peak"] = secs, peak
+    (vd, gd), (vb, gb) = out["dense"], out["blocked"]
+    rel_v = abs(float(vd) - float(vb)) / abs(float(vd))
+    rel_g = max(float(((gd[k] - gb[k]).abs() / gd[k].abs().clamp_min(1e-300)).max()) for k in gd)
+    log(f"[dense] dense vs blocked f64: value rel diff {rel_v:.3e} | gradient max rel diff {rel_g:.3e} (rtol 1e-9) | "
+        f"grad {[(k, v.tolist()) for k, v in gd.items()]}")
+    assert np.isfinite(float(vd)) and rel_v <= 1e-9 and rel_g <= 1e-9, "dense and blocked f64 value+grad disagree"
+    return out
+
+
 def _rbf_bound(n, m, d):
     bytes_s = 4.0 * (n * d + m * d + n * m) / HBM_BYTES_PER_S
     ops_s = n * m * (3.0 * d + 2.0) / FP32_PEAK
@@ -806,6 +1219,9 @@ def _fp32_peak_of_card():
 
 
 def main():
+    unknown = [a for a in sys.argv[1:] if a != "--dense-breakdown"]
+    if unknown:
+        sys.exit(f"chip_smoke: unknown arguments {unknown}; usage: python3 chip_smoke.py [--dense-breakdown]")
     card = phase0_environment()
     phase1_build()
     rbf_max_abs, rbf_times = phase2_kernel_vs_plain()
@@ -813,6 +1229,9 @@ def main():
     fused_errs, fused_times = phase4_fused_vs_plain()
     phase5_anchor()
     iter_launches, _, _ = phase6_iterative()
+    chol_max_abs, chol_times = phase7_chol_vs_plain()
+    dense_launches, _, _ = phase8_dense(breakdown="--dense-breakdown" in sys.argv[1:])
+    phase8b_blocked_backward()
     sms, mhz, peak = _fp32_peak_of_card()
     log(f"[card] {sms} SMs at max {mhz:.0f} MHz: FP32 FMA peak {peak / 1e12:.1f} TFLOP/s "
         f"(bounds use the data sheet's {FP32_PEAK / 1e12:.0f})")
@@ -821,11 +1240,13 @@ def main():
     rb, rby = _rbf_bound(5120, 10000, 2)
     sk, sp, sb, sby = fused_times[("sym", 50_000, 50_000, 65)]
     gk, gp, gb, gby = fused_times[("general", 10_000, 50_000, 513)]
+    ck, cp, cl, cb, cby = chol_times[(1, DENSE_N)]
     kernels = [
         {"name": "rbf_gram", "route": "cuda", "source": "gumbi_tpu_torch/csrc/rbf_gram.cu",
          "replaces": "gumbi_tpu/ops/pallas_kernels.py:111",
-         "launches": kron_launches["total"] + iter_launches["rbf_gram"],
-         "launches_by_path": {"kronecker": kron_launches["total"], "iterative": iter_launches["rbf_gram"]},
+         "launches": kron_launches["total"] + iter_launches["rbf_gram"] + dense_launches["rbf_gram"],
+         "launches_by_path": {"kronecker": kron_launches["total"], "iterative": iter_launches["rbf_gram"],
+                              "dense": dense_launches["rbf_gram"]},
          "max_abs_err": rbf_max_abs, "ms": k_ms, "plain_ms": p_ms, "bound_ms": rb, "bound_by": rby,
          "library_ms": None, "shape": "5120x10000 d=2"},
         {"name": "fused_stationary_matvec", "route": "cuda", "source": "gumbi_tpu_torch/csrc/fused_matvec.cu",
@@ -838,6 +1259,12 @@ def main():
          "launches": iter_launches["fused_stationary_matvec_sym"], "max_abs_err": fused_errs["sym"],
          "ms": sk, "plain_ms": sp, "bound_ms": sb, "bound_by": sby, "library_ms": None,
          "shape": "50000x50000 d=2 r=65"},
+        {"name": "blocked_cholesky", "route": "cuda", "source": "gumbi_tpu_torch/csrc/blocked_chol.cu",
+         "replaces": "gumbi_tpu/ops/pallas_chol.py:184",
+         "launches": dense_launches["blocked_cholesky"],
+         "launches_by_path": {"dense": dense_launches["blocked_cholesky"]},
+         "max_abs_err": chol_max_abs, "ms": ck, "plain_ms": cp, "bound_ms": cb, "bound_by": cby,
+         "library_ms": cl, "shape": f"1x{DENSE_N}x{DENSE_N}"},
     ]
     log(card)
     print(json.dumps({"kernels": kernels}))

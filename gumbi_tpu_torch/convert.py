@@ -14,6 +14,7 @@ import torch
 
 from .ops.iterative import IterConfig
 from .ops.kernels import CoregTerm, GPSpec, GPTerm
+from .ops.posterior import PosteriorCache
 
 __all__ = [
     "params_from_numpy",
@@ -22,6 +23,8 @@ __all__ = [
     "iter_config_from_reference",
     "iter_cache_from_numpy",
     "iter_cache_to_numpy",
+    "posterior_cache_from_numpy",
+    "posterior_cache_to_numpy",
 ]
 
 
@@ -86,3 +89,24 @@ def iter_cache_from_numpy(cache, *, device, dtype) -> dict:
 def iter_cache_to_numpy(cache) -> dict:
     """The port's iterative posterior cache → numpy arrays."""
     return {k: v.detach().cpu().numpy() for k, v in cache.items()}
+
+
+def posterior_cache_from_numpy(cache, *, device, dtype) -> PosteriorCache:
+    """A reference ``PosteriorCache`` (any object with ``L``, ``alpha``,
+    ``xc``, ``xk`` and ``mask`` arrays) → the port's, on ``device``. The
+    level indices ``xk`` become integers, whatever dtype they arrive in."""
+    t = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)  # noqa: E731
+    return PosteriorCache(
+        L=t(cache.L),
+        alpha=t(cache.alpha),
+        xc=t(cache.xc),
+        xk=torch.as_tensor(np.array(cache.xk), device=device).long(),
+        mask=None if cache.mask is None else t(cache.mask),
+    )
+
+
+def posterior_cache_to_numpy(cache: PosteriorCache) -> dict:
+    """The port's ``PosteriorCache`` → a dict of numpy arrays with the
+    reference's field names (``mask`` stays None when there is none); build
+    the reference's cache with ``PosteriorCache(**d)``."""
+    return {k: None if v is None else v.detach().cpu().numpy() for k, v in cache._asdict().items()}

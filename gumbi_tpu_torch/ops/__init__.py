@@ -1,5 +1,6 @@
 """PyTorch/CUDA compute core: kernels, likelihoods, optimizers, posteriors."""
 
+from .hopper_chol import BlockedChol, cholesky_plain, hopper_cholesky, seam_cholesky  # noqa: F401
 from .hopper_kernels import (  # noqa: F401
     FUSABLE_KERNELS,
     FusedMatvec,
@@ -37,7 +38,14 @@ from .kernels import (  # noqa: F401
 )
 from .kronecker import KronCache, kron_cache, kron_mll, kron_neg_logp, kron_predict_diag  # noqa: F401
 from .linalg import quad_and_logdet, spd_solve  # noqa: F401
-from .mll import DEFAULT_JITTER, cholesky_factor, map_neg_logp, mll  # noqa: F401
+from .mll import (  # noqa: F401
+    DEFAULT_JITTER,
+    blocked_gaussian_logp,
+    cholesky_factor,
+    map_neg_logp,
+    map_neg_logp_blocked,
+    mll,
+)
 from .optimize import (  # noqa: F401
     coarse_restart_map,
     fit_gp_map,
@@ -47,9 +55,13 @@ from .optimize import (  # noqa: F401
 )
 from .posterior import (  # noqa: F401
     PosteriorCache,
+    draw_samples,
     posterior_cache,
+    predict_cov,
+    predict_cov_level,
     predict_diag,
     predict_diag_chunked,
+    predict_diag_level,
 )
 from .priors import (  # noqa: F401
     constrain,

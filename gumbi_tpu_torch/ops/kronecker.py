@@ -20,7 +20,8 @@ from typing import NamedTuple
 import torch
 
 from .kernels import GPSpec, _term_cont, coreg_matrix
-from .linalg import cho_solve, quad_and_logdet, safe_cholesky
+from . import linalg
+from .linalg import cho_solve, quad_and_logdet
 from .mll import DEFAULT_JITTER, _finite_or_inf
 from .priors import constrain, log_prior
 
@@ -140,7 +141,7 @@ def kron_cache(spec: GPSpec, params, xc_locs, Y, jitter=DEFAULT_JITTER) -> KronC
     s, ω, U = _whitened_eig(B, s2)
 
     Z = (Y / s[None, :]) @ U
-    L = safe_cholesky(_whitened_systems(Kx, ω))
+    L = linalg.safe_cholesky(_whitened_systems(Kx, ω))
     Wsol = cho_solve(L, Z.T[:, :, None])[:, :, 0]  # (D, N)
     # α_{i,·} = (1/s_i) Σ_k U_{ik} w_k
     alpha = (U @ Wsol) / s[:, None]

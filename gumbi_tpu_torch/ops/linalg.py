@@ -34,7 +34,16 @@ __all__ = ["quad_and_logdet", "spd_solve", "safe_cholesky", "cho_solve", "cho_in
 
 
 def safe_cholesky(A):
-    """Lower Cholesky factor of ``A`` (..., N, N); NaN where ``A`` is not PD."""
+    """Lower Cholesky factor of ``A`` (..., N, N); NaN where ``A`` is not PD.
+
+    The one seam of the dense path: :func:`quad_and_logdet`,
+    :func:`spd_solve`, ``mll.cholesky_factor`` (and with it
+    ``posterior.posterior_cache``), ``posterior.draw_samples`` and
+    ``kronecker.kron_cache`` all factorize through this module attribute,
+    looked up at call time. Replacing it (the counterpart of swapping the
+    reference's ``linalg._chol_and_alpha``) puts another factorization, such
+    as :func:`.hopper_chol.seam_cholesky`, under all of them.
+    """
     L, info = torch.linalg.cholesky_ex(A)
     return torch.where((info == 0)[..., None, None], L, torch.nan)
 

@@ -1,9 +1,11 @@
 """GP posterior prediction: mean/variance solves over point sets.
 
-Port of ``gumbi_tpu/ops/posterior.py`` (``PosteriorCache``,
-``posterior_cache``, ``predict_diag``, ``predict_diag_chunked``). The
-training-set Cholesky is computed once and cached on the device; prediction
-is then one (M, N) cross-Gram, one matmul and one triangular solve per chunk.
+Port of ``gumbi_tpu/ops/posterior.py``. The training-set Cholesky is
+computed once and cached on the device; prediction is then one (M, N)
+cross-Gram, one matmul and one triangular solve per chunk. The ``*_level``
+functions predict one additive component against the total-kernel cache,
+``predict_cov`` returns the joint covariance and ``draw_samples`` draws
+from it.
 """
 
 from __future__ import annotations
@@ -12,11 +14,21 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .kernels import GPSpec, gram, gram_diag, noise_diag
+from . import linalg
+from .kernels import GPSpec, _term_diag, _term_gram, gram, gram_diag, noise_diag
 from .linalg import cho_solve
 from .mll import DEFAULT_JITTER, cholesky_factor
 
-__all__ = ["PosteriorCache", "posterior_cache", "predict_diag", "predict_diag_chunked"]
+__all__ = [
+    "PosteriorCache",
+    "posterior_cache",
+    "predict_diag",
+    "predict_diag_chunked",
+    "predict_diag_level",
+    "predict_cov",
+    "predict_cov_level",
+    "draw_samples",
+]
 
 
 class PosteriorCache(NamedTuple):
@@ -38,18 +50,44 @@ def posterior_cache(
     return PosteriorCache(L=L, alpha=alpha, xc=xc, xk=xk, mask=mask)
 
 
-def predict_diag(spec: GPSpec, params, cache: PosteriorCache, xc_new, xk_new, with_noise=True):
-    """Posterior mean and per-point variance at new points."""
-    Ks = gram(spec, params, xc_new, xk_new, cache.xc, cache.xk)  # (M, N)
+def _mean_and_whitened(cache: PosteriorCache, Ks):
+    """(Ks·α, L⁻¹Ksᵀ) for a cross-covariance ``Ks`` (M, N) against the cache."""
     if cache.mask is not None:
         Ks = Ks * cache.mask[None, :]
-    mean = Ks @ cache.alpha
-    V = torch.linalg.solve_triangular(cache.L, Ks.T, upper=False)  # (N, M)
+    return Ks @ cache.alpha, torch.linalg.solve_triangular(cache.L, Ks.T, upper=False)  # (M,), (N, M)
+
+
+def _term(spec: GPSpec, level):
+    return {t.suffix: t for t in spec.terms}[level]
+
+
+def predict_diag(spec: GPSpec, params, cache: PosteriorCache, xc_new, xk_new, with_noise=True):
+    """Posterior mean and per-point variance at new points."""
+    mean, V = _mean_and_whitened(cache, gram(spec, params, xc_new, xk_new, cache.xc, cache.xk))
     var = gram_diag(spec, params, xc_new, xk_new) - (V * V).sum(0)
     var = torch.clamp(var, min=0.0)
     if with_noise:
         var = var + noise_diag(spec, params, xk_new, dtype=var.dtype)
     return mean, var
+
+
+def predict_diag_level(spec: GPSpec, params, cache: PosteriorCache, xc_new, xk_new, level):
+    """Posterior mean/variance of ONE additive component at new points.
+
+    For an additive model K = Σ_t K_t, the component-t posterior given the
+    total-kernel factorization is
+
+        mean_t = K_t(X*, X) α,      α = (K + noise)⁻¹ y
+        var_t  = diag K_t(X*, X*) − diag(K_t(X*, X) (K + noise)⁻¹ K_t(X, X*))
+
+    (solves stay against the TOTAL cache; only the cross/prior covariances
+    restrict to the term). ``level`` is the term suffix. Observation noise
+    never applies to a component.
+    """
+    term = _term(spec, level)
+    mean, V = _mean_and_whitened(cache, _term_gram(spec, term, params, xc_new, xk_new, cache.xc, cache.xk))
+    var = _term_diag(spec, term, params, xc_new, xk_new) - (V * V).sum(0)
+    return mean, torch.clamp(var, min=0.0)
 
 
 def predict_diag_chunked(
@@ -68,3 +106,56 @@ def predict_diag_chunked(
         means.append(mu)
         vars_.append(v)
     return torch.cat(means), torch.cat(vars_)
+
+
+def predict_cov_level(spec: GPSpec, params, cache: PosteriorCache, xc_new, xk_new, level):
+    """Posterior mean and FULL covariance of one additive component: the
+    decomposition of :func:`predict_diag_level` with the joint covariance,
+    so sublevel function draws are exact."""
+    term = _term(spec, level)
+    mean, V = _mean_and_whitened(cache, _term_gram(spec, term, params, xc_new, xk_new, cache.xc, cache.xk))
+    Kss = _term_gram(spec, term, params, xc_new, xk_new, xc_new, xk_new)
+    return mean, Kss - V.T @ V
+
+
+def predict_cov(spec: GPSpec, params, cache: PosteriorCache, xc_new, xk_new, with_noise=False):
+    """Posterior mean and full covariance at new points (for joint sampling)."""
+    mean, V = _mean_and_whitened(cache, gram(spec, params, xc_new, xk_new, cache.xc, cache.xk))
+    cov = gram(spec, params, xc_new, xk_new, xc_new, xk_new) - V.T @ V
+    if with_noise:
+        cov = cov + torch.diag(noise_diag(spec, params, xk_new, dtype=cov.dtype))
+    return mean, cov
+
+
+def draw_samples(
+    spec: GPSpec,
+    params,
+    cache: PosteriorCache,
+    xc_new,
+    xk_new,
+    generator=None,
+    n_samples=1,
+    with_noise=False,
+    jitter=DEFAULT_JITTER,
+    level=None,
+    eps=None,
+):
+    """Joint posterior draws at new points, shape (n_samples, M). ``level``
+    draws from one additive component's conditional; components carry no
+    observation noise.
+
+    The standard-normal block comes from ``generator`` (a
+    ``torch.Generator`` on the points' device), or is passed in as ``eps``
+    (n_samples, M). The reference draws it from a JAX key, which torch
+    cannot reproduce: with the same ``eps`` the two packages give the same
+    draws, with a generator the same distribution.
+    """
+    if level is not None:
+        mean, cov = predict_cov_level(spec, params, cache, xc_new, xk_new, level=level)
+    else:
+        mean, cov = predict_cov(spec, params, cache, xc_new, xk_new, with_noise=with_noise)
+    cov.diagonal().add_(jitter)
+    Lss = linalg.safe_cholesky(cov)
+    if eps is None:
+        eps = torch.randn((n_samples, mean.shape[0]), dtype=mean.dtype, device=mean.device, generator=generator)
+    return mean[None, :] + eps @ Lss.T
