@@ -9,7 +9,13 @@ Phases (any failure raises and ends the run with a nonzero exit code):
    torch/CUDA versions, ``nvcc --version`` and whether ``triton`` imports.
 1. Build the hand kernels from ``gumbi_tpu_torch/csrc`` with nvcc (sm_90a),
    one nvcc per source, all at once, and print the build time and ptxas'
-   register/spill report of each source.
+   register/spill report of each source. Then hold the shared 3xTF32 tile
+   product alone (``csrc/tf32x3.cuh``), through a test entry point of each
+   library, against ``matmul_3xtf32_plain`` and an f64 product: the
+   Cholesky's 128×128×128 ``mma.sync`` tile, and the symmetric matvec's
+   ``wgmma`` warpgroup product both ways round on a ragged 200×150×65 one;
+   |product − f64| ≤ 2e-6·(|a|·|b|) and at least 16× better than one TF32
+   pass.
 2. Hold the ``rbf_gram`` CUDA kernel against its plain torch version at
    the slice's shapes and ragged ones, d ∈ {1, 2, 3}: max |ΔK|/η² ≤ 1e-5,
    and the ls/η gradients through autograd. Time both at 5120² and
@@ -25,12 +31,15 @@ Phases (any failure raises and ends the run with a nonzero exit code):
    fitted point within 0.005 nats/point of the f64 (plain path) one.
 4. Hold the fused Gram-matvec kernels (general and symmetric) against
    their plain version and an f64 evaluation: six kernel kinds, d ∈ {1,
-   2, 3}, ragged shapes, r ∈ {1, 5, 17, 32, 33, 64, 65, 100, 513} (every
-   column width the kernels are built for), the symmetric band grid at
-   nb = 4 and 7; |kernel − f64| ≤ 1e-5·(|K|·|V|) and no worse than twice
-   the f32 plain version. The symmetric kernel against the plain version
-   at N = 50,000 for r = 64 and 1 (LOVE, the cache's PCG). Time both at
-   the large-N engine's shapes.
+   2, 3}, ragged shapes, r ∈ {1, 5, 8, 9, 16, 17, 32, 33, 64, 65, 72, 73,
+   100, 513} (every column width the kernels are built for), the
+   symmetric band grid at nb = 4 and 7 whole blocks, at nb = 5 and 6 with
+   a short last block (odd, and even with the wrap band) and at nb = 12,
+   where a band walker takes several bands; |kernel − f64| ≤
+   1e-5·(|K|·|V|) and no worse than twice the f32 plain version. The
+   symmetric kernel against the plain version at N = 50,000 for r = 64
+   and 1 (LOVE, the cache's PCG), timed; two runs at N = 50,000, r = 65
+   bit-equal. Time both kernels at the large-N engine's shapes.
 5. Anchor the iterative engine at N = 16,384: its objective against the
    dense Cholesky one (≤ 5e-4 relative) and LOVE variances at rank 512
    against the exact posterior diagonal (median ≤ 5%).
@@ -55,8 +64,9 @@ Phases (any failure raises and ends the run with a nonzero exit code):
    of the Kronecker path (2, 5120, 5120) and of the dense path's coarse
    stage (1, 1024, 1024) and polish (1, 16384, 16384) against f64 by the
    same rule; a non-PD batch entry gives NaN there and right factors
-   elsewhere. Time plain, kernel, library, kernel at (1, 2048, 2048),
-   (2, 5120, 5120) and (1, 16384, 16384).
+   elsewhere; two runs at (2, 5120, 5120) bit-equal. Time plain, kernel,
+   library, kernel at (1, 1024, 1024), (1, 2048, 2048), (2, 5120, 5120)
+   and (1, 16384, 16384).
 8. The exact dense path of ``bench_dense50k.py``'s single-accelerator
    configuration (N = 16,384, one ExpQuad ARD term over 2 dims, 8 restarts,
    coarse 1,024 rows × 32 iterations, polish 12 iterations at full N), then
@@ -75,6 +85,11 @@ Phases (any failure raises and ends the run with a nonzero exit code):
    at N = 16,384: values and gradients agree to rtol 1e-9; prints each
    one's time and peak memory.
 9. Print the card, the kernels' JSON line, then ``{"ok": true, ...}`` last.
+   Each kernel's ``bound_ms`` is the largest of its bytes over 3.35 TB/s,
+   its product flops as three TF32 passes over 495 TFLOP/s, and its other
+   operations over the 67 TFLOP/s FP32 peak; ``bound_fp32_ms`` is the
+   earlier figure, all operations at the FP32 peak. No kernel's time may
+   read under its bound.
 
 Exits nonzero, printing no result, where CUDA is unavailable.
 """
@@ -135,10 +150,11 @@ from gumbi_tpu_torch.ops import (  # noqa: E402
 )
 from gumbi_tpu_torch.ops import _build, hopper_chol  # noqa: E402
 from gumbi_tpu_torch.ops.hopper_chol import _chol_lib  # noqa: E402
-from gumbi_tpu_torch.ops.hopper_kernels import SYM_TILE, _fused_lib, _rbf_lib  # noqa: E402
+from gumbi_tpu_torch.ops.hopper_kernels import SYM_TILE, _fused_lib, _rbf_lib, sym_product_check  # noqa: E402
 from gumbi_tpu_torch.ops.iterative import _row_fn, pivoted_cholesky  # noqa: E402
 from gumbi_tpu_torch.ops.kronecker import _continuous_gram, _whitened_eig, _whitened_systems, kron_parts  # noqa: E402
 from gumbi_tpu_torch.ops.mll import DEFAULT_JITTER, _noisy_gram  # noqa: E402
+from gumbi_tpu_torch.ops.tf32x3 import matmul_3xtf32_plain, tf32_round  # noqa: E402
 
 # bench.py's workload (same seeds, spec and stage sizes)
 N_LOCS = 5120
@@ -213,6 +229,48 @@ def phase1_build():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[build] {name} ptxas: {line.strip()}")
     return build_s
+
+
+PRODUCT_TOL = 2e-6  # |product − f64| in units of (|a|·|b|): three TF32 passes keep ~2^-21 per term
+
+
+def _product_check(label, c, a, b):
+    """Hold ``c``, a kernel's 3xTF32 product a·bᵀ, against f64 and against
+    ``matmul_3xtf32_plain``; log the f32 matmul's and one TF32 pass's errors
+    beside it. Returns the error against f64 in units of (|a|·|b|)."""
+    ref = a.double() @ b.double().T
+    scale = (a.double().abs() @ b.double().abs().T).clamp_min(1e-300)
+    err = lambda x: float(((x.double() - ref).abs() / scale).max())  # noqa: E731
+    plain = matmul_3xtf32_plain(a, b.T)
+    e_k, e_p, e_32, e_1 = err(c), err(plain), err(a @ b.T), err(tf32_round(a) @ tf32_round(b).T)
+    d_kp = float(((c - plain).double().abs() / scale).max())
+    log(f"[product] {label}: max|kernel-f64|/(|a||b|) {e_k:.3e} | 3xTF32 plain {e_p:.3e} | f32 matmul {e_32:.3e} | "
+        f"one TF32 pass {e_1:.3e} | kernel vs plain {d_kp:.3e}")
+    assert e_k <= PRODUCT_TOL and d_kp <= PRODUCT_TOL, f"3xTF32 product {label} is off: {e_k}, {d_kp}"
+    assert e_k < e_1 / 16, f"3xTF32 product {label} is no better than one TF32 pass: {e_k} against {e_1}"
+    return e_k
+
+
+def phase1_products():
+    """The shared 3xTF32 tile product alone, through each library's test
+    entry point: a 128×128×128 tile (the Cholesky's), on standard normal
+    operands and on operands spread over six decades, and a ragged
+    matvec-shaped one (the symmetric matvec's warpgroup product)."""
+    g = torch.Generator().manual_seed(0)
+    for label, spread in (("normal", 0.0), ("six decades", 3.5)):
+        a, b = (torch.randn(128, 128, generator=g) * torch.exp(spread * torch.randn(128, 128, generator=g))
+                for _ in range(2))
+        a, b = a.cuda(), b.cuda()
+        c = hopper_chol.tile_product_check(a, b)
+        torch.cuda.synchronize()
+        _product_check(f"blocked_chol 128x128x128 {label}", c, a, b)
+    # the symmetric matvec's warpgroup product, both ways round, ragged: 200 rows,
+    # 150 inner indices, 65 columns (the 72-column build)
+    t, v = torch.randn(200, 150, generator=g).cuda(), torch.randn(150, 65, generator=g).cuda()
+    for label, trans in (("T V", False), ("T^T V", True)):
+        out = sym_product_check(t.T.contiguous() if trans else t, v, trans=trans)
+        torch.cuda.synchronize()
+        _product_check(f"fused_matvec {label} 200x150x65", out, t, v.T.contiguous())
 
 
 def _inputs(n, m, d, seed):
@@ -412,6 +470,8 @@ FUSED_TOL = 1e-5  # |kernel − f64| per entry, in units of (|K|·|V|)
 # bound never drops under 2^-23.
 ULP32 = 2.0 ** -23
 FP32_PEAK = 67e12  # H100 SXM FP32 (non-tensor) FLOP/s, NVIDIA data sheet
+TF32_PEAK = 495e12  # H100 SXM TF32 tensor-core FLOP/s, dense, NVIDIA data sheet
+TF32_PASSES = 3  # an f32-class product on the tensor cores: lo·hi + hi·lo + hi·hi
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
 
@@ -441,15 +501,19 @@ def _fused_check(label, out, x1, x2, v, ls, kind):
 
 
 def _matvec_bound(n, m, d, r, sym=False):
-    """(bound_ms, bound_by) of K(x1,x2)·V at the FP32 peak against each input
-    read once and the output written once. Operations: 2·n·m·r product
-    flops plus 2·d distance flops per distinct Gram entry, n·m of them, or
-    n(n+1)/2 for the symmetric K(x, x)."""
+    """(bound_ms, bound_by, bound_fp32_ms) of K(x1,x2)·V: the largest of the
+    2·n·m·r product flops as three TF32 passes at the tensor-core peak, the
+    2·d distance flops per distinct Gram entry (n·m of them, or n(n+1)/2 for
+    the symmetric K(x, x)) at the FP32 peak, and each input read once and
+    the output written once. The last figure is the earlier bound: all
+    operations at the FP32 FMA peak."""
     entries = n * (n + 1) / 2 if sym else n * m
-    ops_s = (2.0 * n * m * r + 2.0 * d * entries) / FP32_PEAK
+    product, distance = 2.0 * n * m * r, 2.0 * d * entries
+    ops_s = max(TF32_PASSES * product / TF32_PEAK, distance / FP32_PEAK)
     inputs = n * d + n * r if sym else n * d + m * d + m * r
     bytes_s = 4.0 * (inputs + n * r) / HBM_BYTES_PER_S
-    return (1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes")
+    return (1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes",
+            1e3 * max((product + distance) / FP32_PEAK, bytes_s))
 
 
 def phase4_fused_vs_plain():
@@ -465,10 +529,13 @@ def phase4_fused_vs_plain():
                 out = fused_stationary_matvec_sym(x, vs, ls, kind)
                 errs["sym"] = max(errs["sym"], _fused_check(f"sym {kind} n=300 d={d} r=5",
                                                             out, x, x, vs, ls, kind))
-        # every column width the kernels are built for: 16·TN columns per
-        # chunk, TN = 1 (r 1, 5, 513's remainder), 2 (17, 32), 4 (33, 64),
-        # 5 (65), 8 (100, 513's full chunks)
-        for r in (1, 5, 17, 32, 33, 64, 65, 100, 513):
+        # every column width the kernels are built for. General: 16·TN columns
+        # per chunk, TN = 1 (r ≤ 16, 513's remainder), 2 (17, 32), 4 (33, 64),
+        # 5 (65, 72, 73), 8 (100, 513's full chunks). Symmetric: 8·NTL columns
+        # per chunk, NTL = 1 (r ≤ 8, 73's remainder), 2 (9, 16, 513's
+        # remainder), 4 (17, 32, 100's remainder), 8 (33, 64), 9 (65, 72 and
+        # every full chunk of a wider r)
+        for r in (1, 5, 8, 9, 16, 17, 32, 33, 64, 65, 72, 73, 100, 513):
             x1, x2, v, ls = _fused_inputs(2500, 300, 2, r, seed=r)
             out = fused_stationary_matvec(x1, x2, v, ls, "ExpQuad")
             errs["general"] = max(errs["general"], _fused_check(f"general ExpQuad 2500x300 r={r}",
@@ -477,8 +544,11 @@ def phase4_fused_vs_plain():
             out = fused_stationary_matvec_sym(x, vs, ls, "Matern52")
             errs["sym"] = max(errs["sym"], _fused_check(f"sym Matern52 n=2500 r={r}",
                                                         out, x, x, vs, ls, "Matern52"))
-        for nb in (4, 7):  # even and odd band grids
-            n = nb * SYM_TILE
+        # band grids: even (with the wrap band) and odd, whole blocks and a
+        # short last block (2,085 rows: nb = 5; 2,860: nb = 6), and nb = 12,
+        # where a band walker takes more than one band
+        for n in (4 * SYM_TILE, 7 * SYM_TILE, 4 * SYM_TILE + 37, 5 * SYM_TILE + 300, 12 * SYM_TILE - 5):
+            nb = -(-n // SYM_TILE)
             for kind in ("ExpQuad", "Matern32"):
                 x, _, vs, ls = _fused_inputs(n, n, 2, 65, seed=nb)
                 sym = fused_stationary_matvec_sym(x, vs, ls, kind)
@@ -489,15 +559,30 @@ def phase4_fused_vs_plain():
                 log(f"[fused] sym vs general n={n} {kind}: max|d|/max|general| {dsg:.3e}")
                 assert dsg <= 1e-5, f"sym and general kernels disagree at n={n}: {dsg}"
 
-        # The sym kernel at the main path's other widths: the LOVE sweeps
-        # (r = 64) and the posterior cache's PCG (r = 1), N = 50,000
+        # The sym kernel at the main path's other widths, N = 50,000: the LOVE
+        # sweeps (r = 64) and the posterior cache's PCG (r = 1); checked
+        # against the plain version and timed (the r = 65 row is below)
+        sym_times = {}
         for r in (64, 1):
             x, _, vs, ls = _fused_inputs(50_000, 50_000, 2, r, seed=200 + r)
             ref = fused_matvec_plain(x, x, vs, ls, "ExpQuad")
-            dmax = float((fused_stationary_matvec_sym(x, vs, ls, "ExpQuad") - ref).abs().max() / ref.abs().max())
-            log(f"[fused] sym ExpQuad n=50000 r={r}: max|kernel-plain|/max|plain| {dmax:.2e}")
-            assert dmax <= 1e-5, f"sym kernel disagrees with plain at n=50000 r={r}: {dmax}"
+            kern = lambda: fused_stationary_matvec_sym(x, vs, ls, "ExpQuad")  # noqa: E731
+            dmax = float((kern() - ref).abs().max() / ref.abs().max())
             del ref
+            ms = _time_ms(kern, 10)
+            bound, by, bound32 = _matvec_bound(50_000, 50_000, 2, r, sym=True)
+            log(f"[fused] sym ExpQuad n=50000 r={r}: max|kernel-plain|/max|plain| {dmax:.2e} | kernel {ms:.3f} ms | "
+                f"bound {bound:.3f} ms ({by}; {bound32:.3f} ms at the FP32 FMA peak)")
+            assert dmax <= 1e-5, f"sym kernel disagrees with plain at n=50000 r={r}: {dmax}"
+            assert ms >= bound, f"sym kernel at r={r}: {ms} ms is under its bound {bound} ms"
+            sym_times[r] = ms
+
+        # deterministic: every slot has one writer, and the sums a fixed order
+        x, _, vs, ls = _fused_inputs(50_000, 50_000, 2, 65, seed=7)
+        same = torch.equal(fused_stationary_matvec_sym(x, vs, ls, "ExpQuad"),
+                           fused_stationary_matvec_sym(x, vs, ls, "ExpQuad"))
+        log(f"[fused] sym ExpQuad n=50000 r=65, two runs bit-equal: {same}")
+        assert same, "the symmetric matvec kernel is not deterministic"
 
         # Times at the large-N engine's shapes: plain, kernel, kernel, plain
         times = {}
@@ -517,14 +602,15 @@ def phase4_fused_vs_plain():
             k2, p2 = _time_ms(kern), _time_ms(plain)
             k, p = (k1 + k2) / 2, (p1 + p2) / 2
             flops = 2.0 * n * m * (2 + r)
-            bound, by = _matvec_bound(n, m, 2, r, sym=which == "sym")
+            bound, by, bound32 = _matvec_bound(n, m, 2, r, sym=which == "sym")
             log(f"[fused] time {which} {n}x{m} d=2 r={r}: kernel {k:.3f} ms ({k1:.3f}, {k2:.3f}; "
                 f"{flops / (k * 1e-3) / 1e9:.0f} GFLOP/s counted as 2nm(d+r)) | plain {p:.3f} ms "
                 f"({p1:.3f}, {p2:.3f}; {flops / (p * 1e-3) / 1e9:.0f} GFLOP/s) | bound {bound:.3f} ms "
-                f"({by}) | max|kernel-plain|/max|plain| {dmax:.2e}")
+                f"({by}; {bound32:.3f} ms at the FP32 FMA peak) | max|kernel-plain|/max|plain| {dmax:.2e}")
             assert dmax <= 1e-5, f"{which} kernel disagrees with plain at {n}x{m} r={r}: {dmax}"
-            times[(which, n, m, r)] = (k, p, bound, by)
-    return errs, times
+            assert k >= bound, f"{which} kernel at {n}x{m} r={r}: {k} ms is under its bound {bound} ms"
+            times[(which, n, m, r)] = (k, p, bound, by, bound32)
+    return errs, times, sym_times
 
 
 # ------------------------------------------------------------------
@@ -870,11 +956,14 @@ def _chol_errors(label, A, spd):
 
 
 def _chol_bound(D, n):
-    """(bound_ms, bound_by): D·n³/3 flops at the FP32 peak against A read
-    and L written once."""
-    ops_s = D * n**3 / 3.0 / FP32_PEAK
+    """(bound_ms, bound_by, bound_fp32_ms): the D·n³/3 product flops as three
+    TF32 passes at the tensor-core peak, against A read and L written once;
+    and the earlier figure, the same flops at the FP32 FMA peak."""
+    flops = D * n**3 / 3.0
+    ops_s = TF32_PASSES * flops / TF32_PEAK
     bytes_s = 8.0 * D * n * n / HBM_BYTES_PER_S
-    return (1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes")
+    return (1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes",
+            1e3 * max(flops / FP32_PEAK, bytes_s))
 
 
 def _dense_gram_input(coarse=False):
@@ -925,22 +1014,32 @@ def phase7_chol_vs_plain():
         assert nan == [False, True, False], f"NaN in the wrong batch entries: {nan}"
         assert ok <= CHOL_TOL * max(float(ref.abs().max()), 1.0), f"entries beside the non-PD one are off by {ok}"
 
+        # deterministic: one writer per tile and a fixed order of sums
+        A = _kron_gram_input()
+        same = torch.equal(hopper_chol.cholesky(A), hopper_chol.cholesky(A))
+        log(f"[chol] two runs at (2, {N_LOCS}, {N_LOCS}) bit-equal: {same}")
+        assert same, "the blocked Cholesky kernel is not deterministic"
+        del A
+
         times = {}
         # (1, 2048, 2048) is 16 panels with little trailing work: the cost
         # of the per-panel chain (diagonal CTA, strip, three launches)
-        for D, n, reps in [(1, 2048, 20), (2, N_LOCS, 20), (1, DENSE_N, 5)]:
+        # (1, 1024, 1024) is the shape of the dense path's coarse evaluations
+        for D, n, reps in [(1, DENSE_COARSE_N, 20), (1, 2048, 20), (2, N_LOCS, 20), (1, DENSE_N, 5)]:
             A = _spd_input(D, n)
             plain = lambda: cholesky_plain(A)  # noqa: E731
             kern = lambda: hopper_chol.cholesky(A)  # noqa: E731
             lib = lambda: torch.linalg.cholesky(A)  # noqa: E731
             p, k1, l, k2 = _time_ms(plain, reps), _time_ms(kern, reps), _time_ms(lib, reps), _time_ms(kern, reps)
             k = (k1 + k2) / 2
-            bound, by = _chol_bound(D, n)
+            bound, by, bound32 = _chol_bound(D, n)
             flops = D * n**3 / 3.0
             log(f"[chol] time ({D}, {n}, {n}): kernel {k:.3f} ms ({k1:.3f}, {k2:.3f}; "
                 f"{flops / (k * 1e-3) / 1e12:.2f} TFLOP/s) | plain {p:.3f} ms | library "
-                f"(torch.linalg.cholesky) {l:.3f} ms | bound {bound:.3f} ms ({by}) | kernel/library {k / l:.2f}")
-            times[(D, n)] = (k, p, l, bound, by)
+                f"(torch.linalg.cholesky) {l:.3f} ms | bound {bound:.3f} ms ({by}; {bound32:.3f} ms at the FP32 "
+                f"FMA peak) | kernel/library {k / l:.2f}")
+            assert k >= bound, f"({D}, {n}, {n}): kernel time {k} ms is under its bound {bound} ms"
+            times[(D, n)] = (k, p, l, bound, by, bound32)
             del A
     return max_abs, times
 
@@ -1224,9 +1323,10 @@ def main():
         sys.exit(f"chip_smoke: unknown arguments {unknown}; usage: python3 chip_smoke.py [--dense-breakdown]")
     card = phase0_environment()
     phase1_build()
+    phase1_products()
     rbf_max_abs, rbf_times = phase2_kernel_vs_plain()
     kron_launches = phase3_slice()
-    fused_errs, fused_times = phase4_fused_vs_plain()
+    fused_errs, fused_times, sym_times = phase4_fused_vs_plain()
     phase5_anchor()
     iter_launches, _, _ = phase6_iterative()
     chol_max_abs, chol_times = phase7_chol_vs_plain()
@@ -1238,32 +1338,34 @@ def main():
 
     k_ms, p_ms = rbf_times[(5120, 10000)]
     rb, rby = _rbf_bound(5120, 10000, 2)
-    sk, sp, sb, sby = fused_times[("sym", 50_000, 50_000, 65)]
-    gk, gp, gb, gby = fused_times[("general", 10_000, 50_000, 513)]
-    ck, cp, cl, cb, cby = chol_times[(1, DENSE_N)]
+    sk, sp, sb, sby, sb32 = fused_times[("sym", 50_000, 50_000, 65)]
+    gk, gp, gb, gby, gb32 = fused_times[("general", 10_000, 50_000, 513)]
+    ck, cp, cl, cb, cby, cb32 = chol_times[(1, DENSE_N)]
     kernels = [
         {"name": "rbf_gram", "route": "cuda", "source": "gumbi_tpu_torch/csrc/rbf_gram.cu",
          "replaces": "gumbi_tpu/ops/pallas_kernels.py:111",
          "launches": kron_launches["total"] + iter_launches["rbf_gram"] + dense_launches["rbf_gram"],
          "launches_by_path": {"kronecker": kron_launches["total"], "iterative": iter_launches["rbf_gram"],
                               "dense": dense_launches["rbf_gram"]},
-         "max_abs_err": rbf_max_abs, "ms": k_ms, "plain_ms": p_ms, "bound_ms": rb, "bound_by": rby,
+         "max_abs_err": rbf_max_abs, "ms": k_ms, "plain_ms": p_ms, "bound_ms": rb, "bound_fp32_ms": rb,
+         "bound_by": rby,
          "library_ms": None, "shape": "5120x10000 d=2"},
         {"name": "fused_stationary_matvec", "route": "cuda", "source": "gumbi_tpu_torch/csrc/fused_matvec.cu",
          "replaces": "gumbi_tpu/ops/pallas_kernels.py:309",
          "launches": iter_launches["fused_stationary_matvec"], "max_abs_err": fused_errs["general"],
-         "ms": gk, "plain_ms": gp, "bound_ms": gb, "bound_by": gby, "library_ms": None,
+         "ms": gk, "plain_ms": gp, "bound_ms": gb, "bound_fp32_ms": gb32, "bound_by": gby, "library_ms": None,
          "shape": "10000x50000 d=2 r=513"},
         {"name": "fused_stationary_matvec_sym", "route": "cuda", "source": "gumbi_tpu_torch/csrc/fused_matvec.cu",
          "replaces": "gumbi_tpu/ops/pallas_kernels.py:471",
          "launches": iter_launches["fused_stationary_matvec_sym"], "max_abs_err": fused_errs["sym"],
-         "ms": sk, "plain_ms": sp, "bound_ms": sb, "bound_by": sby, "library_ms": None,
-         "shape": "50000x50000 d=2 r=65"},
+         "ms": sk, "plain_ms": sp, "bound_ms": sb, "bound_fp32_ms": sb32, "bound_by": sby, "library_ms": None,
+         "shape": "50000x50000 d=2 r=65", "ms_r64": sym_times[64], "ms_r1": sym_times[1]},
         {"name": "blocked_cholesky", "route": "cuda", "source": "gumbi_tpu_torch/csrc/blocked_chol.cu",
          "replaces": "gumbi_tpu/ops/pallas_chol.py:184",
          "launches": dense_launches["blocked_cholesky"],
          "launches_by_path": {"dense": dense_launches["blocked_cholesky"]},
-         "max_abs_err": chol_max_abs, "ms": ck, "plain_ms": cp, "bound_ms": cb, "bound_by": cby,
+         "max_abs_err": chol_max_abs, "ms": ck, "plain_ms": cp, "bound_ms": cb, "bound_fp32_ms": cb32,
+         "bound_by": cby,
          "library_ms": cl, "shape": f"1x{DENSE_N}x{DENSE_N}"},
     ]
     log(card)

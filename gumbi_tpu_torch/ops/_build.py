@@ -1,8 +1,10 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles into ``_build/<name>-<hash>.so`` inside the
-package directory, where ``<hash>`` covers the source and the compiler
-flags, so an edited source rebuilds and an unchanged one loads at once. The
+package directory, where ``<hash>`` covers the source, every header under
+``csrc/`` that it includes (directly or through another header) and the
+compiler flags, so an edited source or header rebuilds and an unchanged one
+loads at once. The
 library has a plain C interface (no PyTorch headers), which keeps a build to
 seconds. There is no fallback: a missing nvcc or a failed build raises.
 
@@ -15,12 +17,13 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_libraries", "find_nvcc", "load_library"]
+__all__ = ["NVCC_FLAGS", "build_libraries", "find_nvcc", "load_library", "source_files"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -50,8 +53,29 @@ def find_nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(src: Path) -> list[Path]:
+    """``src`` and the files next to it that it includes with quotes,
+    transitively, in the order first met."""
+    files, todo = [], [src]
+    while todo:
+        f = todo.pop()
+        if f in files:
+            continue
+        files.append(f)
+        for name in _INCLUDE.findall(f.read_text()):
+            inc = (f.parent / name).resolve()
+            if inc.is_file():
+                todo.append(inc)
+    return files
+
+
 def _source_hash(src: Path) -> str:
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256()
+    for f in source_files(src):
+        h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

@@ -4,10 +4,14 @@ Port of ``gumbi_tpu/ops/pallas_chol.py``: the lower Cholesky factor of a
 batched SPD matrix (D, N, N) at f32, right-looking and blocked. On a CUDA
 tensor :func:`hopper_cholesky` runs the CUDA C++ kernels of
 ``csrc/blocked_chol.cu`` (built by nvcc for ``sm_90a`` at first use, see
-:mod:`._build`); on a CPU tensor it runs :func:`cholesky_plain`, the same
-algorithm in torch ops. :func:`cholesky` is the reference's dispatcher: a
-3-D f32 input whose N is a multiple of 256 takes the hand kernel, every
-other input the library factorization.
+:mod:`._build`): strip and trailing update are 128-wide tile products on the
+tensor cores (three TF32 passes, ``csrc/tf32x3.cuh``), and each panel's
+diagonal step runs as one CTA of the kernel that applies the previous
+panel's update, two launches a panel on the caller's stream. On a CPU
+tensor it runs :func:`cholesky_plain`, the same algorithm in torch ops.
+:func:`cholesky` is the reference's dispatcher: a 3-D f32 input whose N is a
+multiple of 256 takes the hand kernel, every other input the library
+factorization.
 
 As in the reference, use is opt-in: the objectives factorize through
 :func:`.linalg.safe_cholesky`, and a caller who wants the hand kernel there
@@ -29,7 +33,8 @@ import torch
 from ._build import load_library
 from .linalg import safe_cholesky as _library_cholesky  # bound here: a swapped seam cannot recurse
 
-__all__ = ["BLOCK", "BlockedChol", "cholesky", "cholesky_plain", "hopper_cholesky", "seam_cholesky"]
+__all__ = ["BLOCK", "BlockedChol", "cholesky", "cholesky_plain", "hopper_cholesky", "seam_cholesky",
+           "tile_product_check"]
 
 BLOCK = 256  # N must be a multiple of this to take the hand kernel (the reference's BLOCK)
 PANEL = 128  # panel width of the factorization; csrc/blocked_chol.cu NB
@@ -41,14 +46,16 @@ class BlockedChol:
     launches = 0  # only _launch_blocked_chol adds to it
 
 
-def cholesky_plain(A, panel=PANEL):
+def cholesky_plain(A, panel=PANEL, matmul=torch.matmul):
     """Right-looking blocked lower Cholesky of (D, N, N) ``A`` in torch ops.
 
     Per panel: the diagonal block's factor, the column strip below it by a
     triangular solve, and the trailing update A_ij −= L_ik·L_jkᵀ; the same
     algorithm as the CUDA kernel, at any dtype and on any device. A panel
     that is not positive definite gives NaN from there on in that batch
-    entry. The result has a clean upper triangle.
+    entry. The result has a clean upper triangle. ``matmul`` forms the
+    trailing product (the tests put :func:`.tf32x3.matmul_3xtf32_plain`
+    there to rehearse the kernel's split product on the CPU).
     """
     L = torch.tril(A)
     n = A.shape[-1]
@@ -60,7 +67,7 @@ def cholesky_plain(A, panel=PANEL):
             # L_ik = A_ik·L_kk⁻ᵀ, i.e. L_kk·L_ikᵀ = A_ikᵀ
             Lik = torch.linalg.solve_triangular(Lkk, L[:, e:, k:e].transpose(-1, -2), upper=False).transpose(-1, -2)
             L[:, e:, k:e] = Lik
-            L[:, e:, e:] -= Lik @ Lik.transpose(-1, -2)
+            L[:, e:, e:] -= matmul(Lik, Lik.transpose(-1, -2))
     return torch.tril(L)
 
 
@@ -77,6 +84,8 @@ def _chol_lib():
     lib.blocked_chol_f32.restype = ctypes.c_int
     lib.blocked_chol_panel.argtypes = []
     lib.blocked_chol_panel.restype = ctypes.c_int
+    lib.blocked_chol_product_test_f32.argtypes = [ctypes.c_void_p] * 4  # a, b, c (128 x 128 each), stream
+    lib.blocked_chol_product_test_f32.restype = ctypes.c_int
     if lib.blocked_chol_panel() != PANEL:
         raise RuntimeError("csrc/blocked_chol.cu NB disagrees with hopper_chol.PANEL")
     return lib
@@ -98,6 +107,24 @@ def _launch_blocked_chol(A):
         raise RuntimeError(f"blocked Cholesky kernel launch failed with CUDA error {err}")
     BlockedChol.launches += 1
     return L
+
+
+def tile_product_check(a, b):
+    """``a @ b.T`` for CUDA float32 (PANEL, PANEL) ``a`` and ``b`` through the
+    factorization's own 3xTF32 tile product: the product alone, for checks
+    against :func:`.tf32x3.matmul_3xtf32_plain`. Not a launch of the
+    Cholesky kernel, so it does not count as one."""
+    for t in (a, b):
+        if t.device.type != "cuda" or t.dtype != torch.float32 or tuple(t.shape) != (PANEL, PANEL):
+            raise TypeError(f"tile_product_check takes CUDA float32 ({PANEL}, {PANEL}) tensors")
+    a, b = a.contiguous(), b.contiguous()
+    c = torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        err = _chol_lib().blocked_chol_product_test_f32(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                                        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"blocked Cholesky tile-product check failed to launch with CUDA error {err}")
+    return c
 
 
 def hopper_cholesky(A):

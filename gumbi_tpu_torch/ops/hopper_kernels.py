@@ -13,7 +13,11 @@ and K(x, x)·V for a unit-amplitude stationary kernel with K never stored,
 the ports of the reference's fused Pallas matvecs. On a CUDA f32 tensor
 they are the CUDA C++ kernels in ``csrc/fused_matvec.cu``; on a CPU tensor
 both are :func:`fused_matvec_plain`. They are forward-only, as in the
-reference: the iterative engine never differentiates through them.
+reference: the iterative engine never differentiates through them. The
+symmetric kernel builds each 64×64 tile of K once and multiplies it both
+ways on the tensor cores (three TF32 passes, ``csrc/tf32x3.cuh``); its
+wrapper hands it a buffer for V's split, padded copy and one scratch buffer
+whose layout :func:`sym_scratch_shape` states.
 
 ``RbfGram.launches``, ``FusedMatvec.launches`` and
 ``FusedMatvecSym.launches`` count kernel launches (CPU calls do not count),
@@ -39,7 +43,11 @@ __all__ = [
     "fused_matvec_plain",
     "fused_stationary_matvec",
     "fused_stationary_matvec_sym",
+    "sym_band_split",
     "sym_matvec_fits",
+    "sym_padded_cols",
+    "sym_scratch_shape",
+    "sym_product_check",
 ]
 
 
@@ -190,11 +198,14 @@ def rbf_gram(x1, x2, ls, eta):
 FUSABLE_KERNELS = ("ExpQuad", "RBF", "Matern12", "Matern32", "Matern52", "Exponential")
 _KIND = {"ExpQuad": 0, "RBF": 0, "Matern12": 1, "Exponential": 2, "Matern32": 3, "Matern52": 4}
 
-# The symmetric kernel's deterministic band reduction keeps one (n, r) slot
-# per band and side; past this much scratch the engine takes the general
-# kernel (the reference gated on its 32 MB VMEM accumulator instead).
+# The symmetric kernel's deterministic reduction keeps one padded (n, r) slot
+# per band and per band-walker; past this much scratch the engine takes the
+# general kernel (the reference gated on its 32 MB VMEM accumulator instead).
 SYM_SCRATCH_BYTES_MAX = 1 << 30
-SYM_TILE = 1024  # band-grid tile rows; csrc/fused_matvec.cu SYM_T
+SYM_TILE = 384  # band-grid block rows; csrc/fused_matvec.cu SYM_T
+SYM_SUBTILE = 64  # K tile edge; V's rows are padded to a multiple of it
+SYM_CHUNK = 72  # widest column chunk of the symmetric kernel (nine 8-column mma tiles)
+SYM_TARGET_CTAS = 396  # about three waves of one CTA per SM on 132 SMs
 
 # Rows of K the plain version forms at once: ~2^28 entries (1 GiB at f32).
 _PLAIN_ENTRIES = 1 << 28
@@ -226,12 +237,41 @@ def fused_matvec_plain(x1, x2, v, ls, kernel="ExpQuad"):
     return out
 
 
-def sym_matvec_fits(n, r):
-    """Whether the symmetric kernel's band scratch, 2·(nb/2 + 1)·n·r f32
-    with nb = ⌈n / 1024⌉, stays within 1 GiB for an (n, n) self-Gram
-    against r columns."""
+def sym_padded_cols(r):
+    """Columns of the padded V and scratch for ``r`` columns: full chunks of
+    72, then the remainder's chunk of 8, 16, 32, 64 or 72 columns."""
+    full, rem = divmod(int(r), SYM_CHUNK)
+    rem_cols = 0 if rem == 0 else next(c for c in (8, 16, 32, 64, SYM_CHUNK) if rem <= c)
+    return full * SYM_CHUNK + rem_cols
+
+
+def sym_band_split(n):
+    """Band walkers per row block for an (n, n) self-Gram: with
+    nb = ⌈n / 384⌉ row blocks the band grid has nb // 2 + 1 bands, CTA (I, s)
+    walks bands s, s + n_split, …, and n_split is the least number that
+    makes nb · n_split CTAs about three waves on the card (never more than
+    there are bands)."""
     nb = -(-int(n) // SYM_TILE)
-    return 2 * (nb // 2 + 1) * int(n) * int(r) * 4 <= SYM_SCRATCH_BYTES_MAX
+    return min(nb // 2 + 1, max(1, -(-SYM_TARGET_CTAS // nb)))
+
+
+def sym_scratch_shape(n, r):
+    """(slots, n_pad, r_pad) of the symmetric kernel's f32 scratch for an
+    (n, n) self-Gram against r columns: one own slot per band walker (rows
+    I, summed over its bands; these come first), then one slot per band but
+    the diagonal one for the transposed partials, each of (n padded to 64)
+    × (r padded to the chunk widths)."""
+    n = int(n)
+    nb = -(-n // SYM_TILE)
+    n_pad = -(-n // SYM_SUBTILE) * SYM_SUBTILE
+    return sym_band_split(n) + nb // 2, n_pad, sym_padded_cols(r)
+
+
+def sym_matvec_fits(n, r):
+    """Whether the symmetric kernel's scratch (:func:`sym_scratch_shape`)
+    stays within 1 GiB for an (n, n) self-Gram against r columns."""
+    slots, n_pad, rp = sym_scratch_shape(n, r)
+    return slots * n_pad * rp * 4 <= SYM_SCRATCH_BYTES_MAX
 
 
 @functools.lru_cache(maxsize=None)
@@ -240,12 +280,19 @@ def _fused_lib():
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.fused_matvec_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i32, i32, ptr]
     lib.fused_matvec_f32.restype = i32
-    lib.fused_matvec_sym_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr]
+    lib.fused_matvec_sym_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i32, i32, i32, ptr]
     lib.fused_matvec_sym_f32.restype = i32
     lib.fused_matvec_sym_tile.argtypes = []
     lib.fused_matvec_sym_tile.restype = i32
+    lib.fused_matvec_sym_padded_cols.argtypes = [i64]
+    lib.fused_matvec_sym_padded_cols.restype = i64
+    lib.fused_matvec_product_test_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.fused_matvec_product_test_f32.restype = i32
     if lib.fused_matvec_sym_tile() != SYM_TILE:
         raise RuntimeError("csrc/fused_matvec.cu SYM_T disagrees with hopper_kernels.SYM_TILE")
+    for r in (1, 8, 9, 33, 64, 65, 72, 73, 513):
+        if lib.fused_matvec_sym_padded_cols(r) != sym_padded_cols(r):
+            raise RuntimeError("csrc/fused_matvec.cu's column chunks disagree with hopper_kernels.sym_padded_cols")
     return lib
 
 
@@ -321,20 +368,44 @@ def _launch_fused_matvec_sym(x, v, ls, kernel):
         raise ValueError("fused_stationary_matvec_sym kernel needs d >= 1")
     if not sym_matvec_fits(n, r):
         raise ValueError(
-            f"fused_stationary_matvec_sym band scratch for n={n}, r={r} exceeds "
+            f"fused_stationary_matvec_sym scratch for n={n}, r={r} exceeds "
             f"{SYM_SCRATCH_BYTES_MAX} bytes; use fused_stationary_matvec"
         )
-    nb = -(-n // SYM_TILE)
-    slots = torch.empty((2, nb // 2 + 1, n, r), dtype=torch.float32, device=x.device)
+    n_slots, n_pad, rp = sym_scratch_shape(n, r)
+    scratch = torch.empty((n_slots, n_pad, rp), dtype=torch.float32, device=x.device)
+    vsplit = torch.empty((2, n_pad, rp), dtype=torch.float32, device=x.device)  # V's TF32 hi and lo, padded
     a, vc = _scaled(x, ls), v.contiguous()
     lib = _fused_lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fused_matvec_sym_f32(a.data_ptr(), vc.data_ptr(), slots.data_ptr(), out.data_ptr(),
-                                       n, r, d, _KIND[kernel], stream)
+        err = lib.fused_matvec_sym_f32(a.data_ptr(), vc.data_ptr(), vsplit.data_ptr(), scratch.data_ptr(),
+                                       out.data_ptr(), n, r, d, _KIND[kernel], sym_band_split(n), stream)
     if err != 0:
         raise RuntimeError(f"fused_stationary_matvec_sym kernel launch failed with CUDA error {err}")
     FusedMatvecSym.launches += 1
+    return out
+
+
+def sym_product_check(t, v, trans=False):
+    """``t @ v`` (``trans`` false, t of shape (m, k)) or ``t.T @ v`` (``trans``
+    true, t of shape (k, m)) for CUDA float32 ``t`` and ``v`` (k, r ≤ 72)
+    through the symmetric kernel's own 3xTF32 warpgroup product on zero-padded
+    64×64 tiles: the product alone, for checks against
+    :func:`.tf32x3.matmul_3xtf32_plain`. Not a launch of a matvec kernel."""
+    for x in (t, v):
+        if x.device.type != "cuda" or x.dtype != torch.float32 or x.dim() != 2:
+            raise TypeError("sym_product_check takes 2-D CUDA float32 tensors")
+    t, v = t.contiguous(), v.contiguous()
+    k, m = t.shape if trans else t.shape[::-1]
+    if v.shape[0] != k or not 1 <= v.shape[1] <= SYM_CHUNK:
+        raise ValueError(f"sym_product_check: t {tuple(t.shape)} and v {tuple(v.shape)} do not fit")
+    out = torch.empty((m, v.shape[1]), dtype=torch.float32, device=t.device)
+    with torch.cuda.device(t.device):
+        err = _fused_lib().fused_matvec_product_test_f32(t.data_ptr(), v.data_ptr(), out.data_ptr(), m, k,
+                                                         v.shape[1], int(trans),
+                                                         torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused matvec product check failed to launch with CUDA error {err}")
     return out
 
 
@@ -351,7 +422,8 @@ def fused_stationary_matvec(x1, x2, v, ls, kernel="ExpQuad"):
 def fused_stationary_matvec_sym(x, v, ls, kernel="ExpQuad"):
     """K(x, x) @ v through the symmetric band-grid kernel for CUDA tensors
     (f32 only, within :func:`sym_matvec_fits`), plain on the CPU. Agrees
-    with :func:`fused_stationary_matvec` to f32 round-off, not bitwise."""
+    with :func:`fused_stationary_matvec` to f32 round-off, not bitwise;
+    two calls on the same inputs agree bitwise."""
     if kernel not in FUSABLE_KERNELS:
         raise ValueError(f"fused_stationary_matvec_sym: kernel {kernel!r} is not one of {FUSABLE_KERNELS}")
     if x.device.type == "cpu":

@@ -351,13 +351,23 @@ def lanczos(matvec, b, k):
 
 def _cholqr2(W, eps_scale):
     """Orthonormalize the tall block W (n, b) by two rounds of Cholesky-QR,
-    with a trace-scaled jitter that keeps a rank-deficient block factorizable."""
+    with a trace-scaled jitter that keeps a rank-deficient block factorizable.
+
+    Where the jittered Gram is still not positive definite at the working
+    precision (a Krylov block that closed early: at f32 the Gram's rounding
+    error can exceed the 1e-6 jitter), the round whitens by the Gram's
+    eigenvectors instead, with the eigenvalues floored at the jitter. Both
+    give a basis of the same span; the Cholesky round, which is the
+    reference's, is kept wherever it succeeds. One host sync per round."""
 
     def one_pass(V):
         G = V.T @ V
         jit_ = eps_scale * (torch.trace(G) / G.shape[0] + 1e-30)
         C = safe_cholesky(G + jit_ * torch.eye(G.shape[0], dtype=V.dtype, device=V.device))
-        return torch.linalg.solve_triangular(C, V.T, upper=False).T
+        if bool(torch.isfinite(C).all()):
+            return torch.linalg.solve_triangular(C, V.T, upper=False).T
+        lam, U = torch.linalg.eigh(G)
+        return V @ (U * torch.rsqrt(torch.clamp_min(lam, jit_)))
 
     return one_pass(one_pass(W))
 

@@ -1,0 +1,36 @@
+#!/usr/bin/env python3
+"""Build and run ``probe_tf32x3.cu`` on the card: the rates of the pieces of
+the 3xTF32 ``mma.sync`` tile product (``csrc/tf32x3.cuh``) and the error of
+carrying sums in the tensor cores' accumulator.
+
+    python3 gumbi_tpu_torch/tools/probe_tf32x3.py
+
+Needs nvcc and one NVIDIA GPU of compute capability 9.0. Prints the card
+(name, power limit) and one line per case; exits nonzero if the build or
+the run fails.
+"""
+
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+sys.path.insert(0, str(HERE.parent.parent))
+
+from gumbi_tpu_torch.ops._build import CSRC, find_nvcc  # noqa: E402
+
+
+def main():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        exe = Path(tmp) / "probe_tf32x3"
+        subprocess.run([find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                        "-I", str(CSRC), "-o", str(exe), str(HERE / "probe_tf32x3.cu")], check=True)
+        subprocess.run([str(exe)], check=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -139,10 +139,37 @@ def test_kernel_launchers_refuse_what_they_cannot_take():
 
 
 def test_sym_matvec_fits_gate():
-    """1 GiB of band scratch: N = 50,000 at r = 65 (PCG) and 64 (LOVE) fit,
-    r = 129 does not; small n always fits."""
-    assert hk.sym_matvec_fits(50_000, 65) and hk.sym_matvec_fits(50_000, 64)
+    """1 GiB of scratch: N = 50,000 at r = 65 (PCG) and 64 (LOVE) fit,
+    r = 129 does not; small n always fits. The scratch is the own slots of
+    the band walkers plus one slot per band but the diagonal one, each
+    (n padded to 64) × (r padded to the column chunks)."""
+    assert hk.sym_matvec_fits(50_000, 65) and hk.sym_matvec_fits(50_000, 64) and hk.sym_matvec_fits(50_000, 1)
     assert not hk.sym_matvec_fits(50_000, 129)
     assert hk.sym_matvec_fits(300, 513)
     nb = -(-50_000 // hk.SYM_TILE)
-    assert 2 * (nb // 2 + 1) * 50_000 * 65 * 4 <= hk.SYM_SCRATCH_BYTES_MAX
+    slots, n_pad, rp = hk.sym_scratch_shape(50_000, 65)
+    n_split = hk.sym_band_split(50_000)
+    assert slots == n_split + nb // 2
+    assert (n_pad, rp) == (50_048, 72) and n_pad % hk.SYM_SUBTILE == 0
+    assert 1 <= n_split <= nb // 2 + 1 and nb * n_split >= hk.SYM_TARGET_CTAS
+    assert slots * n_pad * rp * 4 <= hk.SYM_SCRATCH_BYTES_MAX
+
+
+@pytest.mark.parametrize("r, padded", [(1, 8), (8, 8), (9, 16), (17, 32), (33, 64), (64, 64), (65, 72), (72, 72),
+                                       (73, 80), (100, 104), (513, 520)])
+def test_sym_padded_cols_follow_the_column_chunks(r, padded):
+    """Full chunks of 72 columns, then the remainder's chunk of 8, 16, 32,
+    64 or 72: the widths csrc/fused_matvec.cu builds."""
+    assert hk.sym_padded_cols(r) == padded
+
+
+@pytest.mark.parametrize("n", [1, 300, 2048, 2085, 6139, 16_384])
+def test_sym_scratch_shape_small_and_ragged(n):
+    """One own slot per band walker, never more walkers than bands, rows
+    padded to the 64-row tile."""
+    nb = -(-n // hk.SYM_TILE)
+    slots, n_pad, rp = hk.sym_scratch_shape(n, 5)
+    n_split = hk.sym_band_split(n)
+    assert slots == n_split + nb // 2
+    assert 1 <= n_split <= nb // 2 + 1
+    assert n <= n_pad < n + hk.SYM_SUBTILE and rp == 8

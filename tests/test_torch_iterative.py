@@ -375,3 +375,28 @@ def test_fit_iter_map_matches_reference_host_loop():
                                  _t(pn), _t(pk), _t(u0s), maxiter=15, tol=1e-9)
     assert aux["all_xs"]["ls_total"].shape == (2, 2)
     np.testing.assert_allclose(float(ft), fj, rtol=1e-6)
+
+
+def test_cholqr2_survives_a_gram_that_is_not_positive_definite(monkeypatch):
+    """A Krylov block that closed early leaves a Gram whose jittered Cholesky
+    can fail at f32. The round then whitens by the Gram's eigenvectors: the
+    result is finite, spans the same space and is orthonormal on a full-rank
+    block; a rank-deficient block comes back finite too. Where the Cholesky
+    succeeds the reference's route is taken unchanged."""
+    rng = np.random.default_rng(3)
+    W = torch.as_tensor(rng.normal(size=(400, 8)))
+    by_cholesky = ti._cholqr2(W, 1e-12)
+    L = torch.linalg.cholesky(W.T @ W)
+    np.testing.assert_allclose(by_cholesky.numpy(), torch.linalg.solve_triangular(L, W.T, upper=False).T.numpy(),
+                               rtol=0, atol=1e-9)
+
+    monkeypatch.setattr(ti, "safe_cholesky", lambda A: torch.full_like(A, float("nan")))
+    Q = ti._cholqr2(W, 1e-12)
+    assert bool(torch.isfinite(Q).all())
+    np.testing.assert_allclose((Q.T @ Q).numpy(), np.eye(8), atol=1e-9)
+    np.testing.assert_allclose((Q @ (Q.T @ W)).numpy(), W.numpy(), atol=1e-9)  # same span
+
+    deficient = torch.cat([W[:, :4], W[:, :4]], dim=1).float()
+    Qd = ti._cholqr2(deficient, 1e-6)
+    assert bool(torch.isfinite(Qd).all())
+    np.testing.assert_allclose((Qd @ (Qd.T @ deficient))[:, :4].numpy(), deficient[:, :4].numpy(), atol=1e-3)
