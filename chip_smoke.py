@@ -32,14 +32,21 @@ Phases (any failure raises and ends the run with a nonzero exit code):
 4. Hold the fused Gram-matvec kernels (general and symmetric) against
    their plain version and an f64 evaluation: six kernel kinds, d ∈ {1,
    2, 3}, ragged shapes, r ∈ {1, 5, 8, 9, 16, 17, 32, 33, 64, 65, 72, 73,
-   100, 513} (every column width the kernels are built for), the
-   symmetric band grid at nb = 4 and 7 whole blocks, at nb = 5 and 6 with
-   a short last block (odd, and even with the wrap band) and at nb = 12,
-   where a band walker takes several bands; |kernel − f64| ≤
-   1e-5·(|K|·|V|) and no worse than twice the f32 plain version. The
-   symmetric kernel against the plain version at N = 50,000 for r = 64
-   and 1 (LOVE, the cache's PCG), timed; two runs at N = 50,000, r = 65
-   bit-equal. Time both kernels at the large-N engine's shapes.
+   100, 288, 289, 513} (every column-group and chunk width the kernels are
+   built for), the general kernel at one x2 segment and at several, on
+   ragged n and m (37×23, 2500×300, 300×2500, 1000×4001, 45,100×1000) and
+   at d = 40 (x1 read through L1), the symmetric band grid at nb = 4 and 7
+   whole blocks, at nb = 5 and 6 with a short last block (odd, and even
+   with the wrap band) and at nb = 12, where a band walker takes several
+   bands, the general kernel on the same inputs and the two kernels within
+   1e-5 of each other; |kernel − f64| ≤ 1e-5·(|K|·|V|) and no worse than
+   twice the f32 plain version. The symmetric kernel against the plain
+   version at N = 50,000 for r = 64 and 1 (LOVE, the cache's PCG), timed,
+   with the general kernel checked and timed beside it; two runs
+   bit-equal: sym at N = 50,000, r = 65, general at 10,000×50,000, r = 513
+   and at 50,000², r = 65. Time both kernels at the large-N engine's
+   shapes, the general one also at r = 1 (``iter_predict_mean``) and,
+   kernel only, at 100,000², r = 65, past the symmetric kernel's gate.
 5. Anchor the iterative engine at N = 16,384: its objective against the
    dense Cholesky one (≤ 5e-4 relative) and LOVE variances at rank 512
    against the exact posterior diagonal (median ≤ 5%).
@@ -51,11 +58,16 @@ Phases (any failure raises and ends the run with a nonzero exit code):
    factorization is not exhausted and PCG + SLQ run, and one pass of the
    staged campaign (32 coarse Cholesky restarts on 2,048 rows → L-BFGS
    polish on the iterative objective → LOVE cache → 100×100 grid). Every
-   polish evaluation's regime and CG iterations are logged.
+   polish evaluation's regime and CG iterations are logged. Then, counted
+   apart, one value+grad at ls = (0.10, 0.12) with
+   ``IterConfig(sym_matvec=False)``: every PCG sweep through the general
+   kernel, beside the symmetric route's value, iterations and wall-clock.
    Checks: both values finite and trusted, PCG run at the second point,
    grid mean/var finite of shape (10000,), var ≥ 0,
    the f32 objective at the fit within 0.005 nats/point of an f64 one on
-   the plain path, and each kernel launched on that path.
+   the plain path, each kernel launched on that path, and the
+   ``sym_matvec=False`` run finite, with no symmetric launch and at least
+   one general launch per PCG iteration.
 7. Hold the blocked Cholesky kernel against its plain version, the library
    factorization and an f64 factor: SPD inputs X·Xᵀ/64 + 2I from a numpy
    seed at D ∈ {1, 2, 3}, N ∈ {256, 512, 768, 5120} and (1, 1024),
@@ -150,7 +162,14 @@ from gumbi_tpu_torch.ops import (  # noqa: E402
 )
 from gumbi_tpu_torch.ops import _build, hopper_chol  # noqa: E402
 from gumbi_tpu_torch.ops.hopper_chol import _chol_lib  # noqa: E402
-from gumbi_tpu_torch.ops.hopper_kernels import SYM_TILE, _fused_lib, _rbf_lib, sym_product_check  # noqa: E402
+from gumbi_tpu_torch.ops.hopper_kernels import (  # noqa: E402
+    SYM_TILE,
+    _fused_lib,
+    _rbf_lib,
+    general_split,
+    sym_matvec_fits,
+    sym_product_check,
+)
 from gumbi_tpu_torch.ops.iterative import _row_fn, pivoted_cholesky  # noqa: E402
 from gumbi_tpu_torch.ops.kronecker import _continuous_gram, _whitened_eig, _whitened_systems, kron_parts  # noqa: E402
 from gumbi_tpu_torch.ops.mll import DEFAULT_JITTER, _noisy_gram  # noqa: E402
@@ -203,15 +222,10 @@ SOURCES = ("rbf_gram", "fused_matvec", "blocked_chol")
 
 
 def phase1_build():
+    # ptxas' resource report of each source (registers, shared memory,
+    # spills) compiles beside the libraries, all at once
     t0 = time.perf_counter()
-    _build.build_libraries(SOURCES)
-    _rbf_lib()
-    _fused_lib()
-    _chol_lib()
-    build_s = time.perf_counter() - t0
-    log(f"[build] {', '.join(s + '.cu' for s in SOURCES)} built (one nvcc each, in parallel) "
-        f"and loaded in {build_s:.2f} s")
-    # Resource report of the same sources (registers, shared memory, spills)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = [
         subprocess.Popen(
             [_build.find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -221,6 +235,13 @@ def phase1_build():
         )
         for name in SOURCES
     ]
+    _build.build_libraries(SOURCES)
+    _rbf_lib()
+    _fused_lib()
+    _chol_lib()
+    build_s = time.perf_counter() - t0
+    log(f"[build] {', '.join(s + '.cu' for s in SOURCES)} built (one nvcc each, in parallel, beside the ptxas "
+        f"reports) and loaded in {build_s:.2f} s")
     for name, proc in zip(SOURCES, procs):
         out, _ = proc.communicate(timeout=300)
         if proc.returncode != 0:
@@ -228,6 +249,7 @@ def phase1_build():
         for line in out.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[build] {name} ptxas: {line.strip()}")
+    log(f"[build] ptxas reports done at {time.perf_counter() - t0:.2f} s")
     return build_s
 
 
@@ -529,24 +551,39 @@ def phase4_fused_vs_plain():
                 out = fused_stationary_matvec_sym(x, vs, ls, kind)
                 errs["sym"] = max(errs["sym"], _fused_check(f"sym {kind} n=300 d={d} r=5",
                                                             out, x, x, vs, ls, kind))
-        # every column width the kernels are built for. General: 16·TN columns
-        # per chunk, TN = 1 (r ≤ 16, 513's remainder), 2 (17, 32), 4 (33, 64),
-        # 5 (65, 72, 73), 8 (100, 513's full chunks). Symmetric: 8·NTL columns
-        # per chunk, NTL = 1 (r ≤ 8, 73's remainder), 2 (9, 16, 513's
-        # remainder), 4 (17, 32, 100's remainder), 8 (33, 64), 9 (65, 72 and
-        # every full chunk of a wider r)
-        for r in (1, 5, 8, 9, 16, 17, 32, 33, 64, 65, 72, 73, 100, 513):
+        # every column width the kernels are built for. General: column
+        # groups of up to two chunks of 8·NTL columns, NTL = 9 for every
+        # chunk but the last, which is as narrow as the remainder: 1 (r ≤ 8,
+        # 73's and 289's), 2 (9, 16, 513's), 4 (17, 32, 100's), 8 (33, 64),
+        # 9 (65, 72, 288); one group for r ≤ 144 (1, 2 chunks), two for 288
+        # and 289, four for 513. At 2500×300 (5 x2 tiles) every one runs
+        # s = 5 segments. Symmetric: 8·NTL columns per chunk, NTL = 1 (r ≤
+        # 8, 73's remainder), 2 (9, 16, 513's remainder), 4 (17, 32, 100's
+        # remainder), 8 (33, 64), 9 (65, 72 and every full chunk of a wider r)
+        for r in (1, 5, 8, 9, 16, 17, 32, 33, 64, 65, 72, 73, 100, 288, 289, 513):
             x1, x2, v, ls = _fused_inputs(2500, 300, 2, r, seed=r)
             out = fused_stationary_matvec(x1, x2, v, ls, "ExpQuad")
-            errs["general"] = max(errs["general"], _fused_check(f"general ExpQuad 2500x300 r={r}",
-                                                                out, x1, x2, v, ls, "ExpQuad"))
+            errs["general"] = max(errs["general"], _fused_check(
+                f"general ExpQuad 2500x300 r={r} s={general_split(2500, 300, r)[0]}", out, x1, x2, v, ls, "ExpQuad"))
             x, _, vs, ls = _fused_inputs(2500, 2500, 2, r, seed=100 + r)
             out = fused_stationary_matvec_sym(x, vs, ls, "Matern52")
             errs["sym"] = max(errs["sym"], _fused_check(f"sym Matern52 n=2500 r={r}",
                                                         out, x, x, vs, ls, "Matern52"))
+        # ragged n and m, one x2 segment and several: 300×2500 (s = 40), an m
+        # that is no multiple of 64 at s > 1 (1000×4001, s = 15) and at s = 1
+        # (45,100 rows: 353 row blocks), 37×23 above (one x2 tile, s = 1);
+        # and d = 40, past the 32 coordinates staged in shared memory
+        for n, m, d, r, kind in ((300, 2500, 3, 65, "Matern32"), (1000, 4001, 3, 289, "Matern12"),
+                                 (45_100, 1000, 3, 65, "Exponential"), (45_100, 1000, 3, 1, "ExpQuad"),
+                                 (700, 1500, 40, 9, "Matern12")):
+            x1, x2, v, ls = _fused_inputs(n, m, d, r, seed=n + m + r)
+            out = fused_stationary_matvec(x1, x2, v, ls, kind)
+            errs["general"] = max(errs["general"], _fused_check(
+                f"general {kind} {n}x{m} d={d} r={r} s={general_split(n, m, r)[0]}", out, x1, x2, v, ls, kind))
         # band grids: even (with the wrap band) and odd, whole blocks and a
         # short last block (2,085 rows: nb = 5; 2,860: nb = 6), and nb = 12,
-        # where a band walker takes more than one band
+        # where a band walker takes more than one band; the general kernel on
+        # the same square inputs, against f64 and against the symmetric one
         for n in (4 * SYM_TILE, 7 * SYM_TILE, 4 * SYM_TILE + 37, 5 * SYM_TILE + 300, 12 * SYM_TILE - 5):
             nb = -(-n // SYM_TILE)
             for kind in ("ExpQuad", "Matern32"):
@@ -555,27 +592,36 @@ def phase4_fused_vs_plain():
                 gen = fused_stationary_matvec(x, x, vs, ls, kind)
                 errs["sym"] = max(errs["sym"], _fused_check(f"sym {kind} n={n} (nb={nb}) r=65",
                                                             sym, x, x, vs, ls, kind))
+                errs["general"] = max(errs["general"], _fused_check(
+                    f"general {kind} {n}x{n} r=65 s={general_split(n, n, 65)[0]}", gen, x, x, vs, ls, kind))
                 dsg = float((sym - gen).abs().max() / gen.abs().max())
                 log(f"[fused] sym vs general n={n} {kind}: max|d|/max|general| {dsg:.3e}")
                 assert dsg <= 1e-5, f"sym and general kernels disagree at n={n}: {dsg}"
-
         # The sym kernel at the main path's other widths, N = 50,000: the LOVE
         # sweeps (r = 64) and the posterior cache's PCG (r = 1); checked
-        # against the plain version and timed (the r = 65 row is below)
-        sym_times = {}
+        # against the plain version and timed (the r = 65 row is below), the
+        # general kernel timed beside it on the same inputs
+        sym_times, times = {}, {}
         for r in (64, 1):
             x, _, vs, ls = _fused_inputs(50_000, 50_000, 2, r, seed=200 + r)
             ref = fused_matvec_plain(x, x, vs, ls, "ExpQuad")
             kern = lambda: fused_stationary_matvec_sym(x, vs, ls, "ExpQuad")  # noqa: E731
+            gen = lambda: fused_stationary_matvec(x, x, vs, ls, "ExpQuad")  # noqa: E731
             dmax = float((kern() - ref).abs().max() / ref.abs().max())
+            gmax = float((gen() - ref).abs().max() / ref.abs().max())
             del ref
-            ms = _time_ms(kern, 10)
+            ms, gms = _time_ms(kern, 10), _time_ms(gen, 10)
             bound, by, bound32 = _matvec_bound(50_000, 50_000, 2, r, sym=True)
+            gbound, gby, gbound32 = _matvec_bound(50_000, 50_000, 2, r)
             log(f"[fused] sym ExpQuad n=50000 r={r}: max|kernel-plain|/max|plain| {dmax:.2e} | kernel {ms:.3f} ms | "
-                f"bound {bound:.3f} ms ({by}; {bound32:.3f} ms at the FP32 FMA peak)")
+                f"bound {bound:.3f} ms ({by}; {bound32:.3f} ms at the FP32 FMA peak) | general kernel {gms:.3f} ms "
+                f"(bound {gbound:.3f} ms, max|general-plain|/max|plain| {gmax:.2e})")
             assert dmax <= 1e-5, f"sym kernel disagrees with plain at n=50000 r={r}: {dmax}"
+            assert gmax <= 1e-5, f"general kernel disagrees with plain at n=50000 r={r}: {gmax}"
             assert ms >= bound, f"sym kernel at r={r}: {ms} ms is under its bound {bound} ms"
+            assert gms >= gbound, f"general kernel at 50000x50000 r={r}: {gms} ms is under its bound {gbound} ms"
             sym_times[r] = ms
+            times[("general", 50_000, 50_000, r)] = (gms, None, gbound, gby, gbound32)
 
         # deterministic: every slot has one writer, and the sums a fixed order
         x, _, vs, ls = _fused_inputs(50_000, 50_000, 2, 65, seed=7)
@@ -583,10 +629,16 @@ def phase4_fused_vs_plain():
                            fused_stationary_matvec_sym(x, vs, ls, "ExpQuad"))
         log(f"[fused] sym ExpQuad n=50000 r=65, two runs bit-equal: {same}")
         assert same, "the symmetric matvec kernel is not deterministic"
+        for n, m, r in ((10_000, 50_000, 513), (50_000, 50_000, 65)):
+            x1, x2, v, ls = _fused_inputs(n, m, 2, r, seed=8)
+            same = torch.equal(fused_stationary_matvec(x1, x2, v, ls, "ExpQuad"),
+                               fused_stationary_matvec(x1, x2, v, ls, "ExpQuad"))
+            log(f"[fused] general ExpQuad {n}x{m} r={r} (s={general_split(n, m, r)[0]}), two runs bit-equal: {same}")
+            assert same, f"the general matvec kernel is not deterministic at {n}x{m} r={r}"
 
         # Times at the large-N engine's shapes: plain, kernel, kernel, plain
-        times = {}
-        cases = [("sym", 50_000, 50_000, 65), ("general", 50_000, 50_000, 65), ("general", 10_000, 50_000, 513)]
+        cases = [("sym", 50_000, 50_000, 65), ("general", 50_000, 50_000, 65), ("general", 10_000, 50_000, 513),
+                 ("general", 10_000, 50_000, 1)]
         for which, n, m, r in cases:
             x1, x2, v, ls = _fused_inputs(n, m, 2, r, seed=7)
             if which == "sym":
@@ -610,6 +662,23 @@ def phase4_fused_vs_plain():
             assert dmax <= 1e-5, f"{which} kernel disagrees with plain at {n}x{m} r={r}: {dmax}"
             assert k >= bound, f"{which} kernel at {n}x{m} r={r}: {k} ms is under its bound {bound} ms"
             times[(which, n, m, r)] = (k, p, bound, by, bound32)
+
+        # past the symmetric kernel's scratch gate: the general kernel alone,
+        # checked once against the plain version, then timed
+        n = 100_000
+        x1, _, v, ls = _fused_inputs(n, n, 2, 65, seed=9)
+        kern = lambda: fused_stationary_matvec(x1, x1, v, ls, "ExpQuad")  # noqa: E731
+        ref = fused_matvec_plain(x1, x1, v, ls, "ExpQuad")
+        dmax = float((kern() - ref).abs().max() / ref.abs().max())
+        del ref
+        k = _time_ms(kern, 5)
+        bound, by, bound32 = _matvec_bound(n, n, 2, 65)
+        log(f"[fused] time general {n}x{n} d=2 r=65 (past the sym gate: fits {sym_matvec_fits(n, 65)}): kernel "
+            f"{k:.3f} ms | bound {bound:.3f} ms ({by}; {bound32:.3f} ms at the FP32 FMA peak) | "
+            f"max|kernel-plain|/max|plain| {dmax:.2e}")
+        assert dmax <= 1e-5, f"general kernel disagrees with plain at {n}x{n} r=65: {dmax}"
+        assert k >= bound, f"general kernel at {n}x{n} r=65: {k} ms is under its bound {bound} ms"
+        times[("general", n, n, 65)] = (k, None, bound, by, bound32)
     return errs, times, sym_times
 
 
@@ -657,10 +726,11 @@ def _delta(a, b):
     return {k: b[k] - a[k] for k in a}
 
 
-def bench_point_value_and_grad(device="cuda", dtype=torch.float32, n=ITER_N, ls=BENCH_LS):
+def bench_point_value_and_grad(device="cuda", dtype=torch.float32, n=ITER_N, ls=BENCH_LS, sym_matvec=None):
     """One value+grad of the iterative MAP objective at bench_iterative50k's
     point, ls = (0.30, 0.35), η = 1, σ = 0.1 (or at another ``ls``), with
-    its priors and config."""
+    its priors and config (``sym_matvec=False``: every sweep through the
+    general kernel)."""
     spec = _iter_spec()
     X, y = make_iter_data(n)
     xc = torch.as_tensor(X, dtype=dtype, device=device)
@@ -668,7 +738,7 @@ def bench_point_value_and_grad(device="cuda", dtype=torch.float32, n=ITER_N, ls=
     xk = torch.zeros((n, 0), dtype=torch.long, device=device)
     la, lb = np.array([2.0, 2.0]), np.array([1.0, 1.0])
     cfg = IterConfig(maxiter=ITER_MAXITER, tol=ITER_TOL, n_probes=ITER_PROBES, precond_rank=ITER_RANK,
-                     quad_steps=ITER_QUAD, block=ITER_BLOCK, love_rank=LOVE_RANK)
+                     quad_steps=ITER_QUAD, block=ITER_BLOCK, love_rank=LOVE_RANK, sym_matvec=sym_matvec)
     pn, pk = draw_probes(0, n, cfg, dtype=dtype, device=device)
     u = {"ls_total": torch.log(torch.tensor(ls, dtype=dtype, device=device)),
          "η_total": torch.zeros((), dtype=dtype, device=device),
@@ -870,11 +940,20 @@ def phase6_iterative():
     after_objective = _counts()
     r = run_iter_campaign("cuda", torch.float32)
     launches = _counts()
+    # the CG point again with every sweep through the general kernel
+    # (IterConfig(sym_matvec=False), the route past the symmetric gate)
+    before = _counts()
+    cg_gen = bench_point_value_and_grad(ls=CG_LS, sym_matvec=False)
+    gen_launches = _delta(before, _counts())
     for label, b in (("bench point", bench), ("CG point", cgpt)):
         log(f"[iter] {label} ls={b['ls']}: value {b['value']:.4f} | grad {b['grad']} | "
             f"CG iters {b['iters']} | rel_res {b['rel_res']:.3e} | "
             f"{'exhausted' if b['exhausted'] else 'CG'} regime | value+grad {b['wall_s']:.3f} s")
     log(f"[iter] launches of the two value+grads: {after_objective}")
+    log(f"[iter] CG point ls={cg_gen['ls']} with sym_matvec=False: value {cg_gen['value']:.4f} (symmetric route "
+        f"{cgpt['value']:.4f}, diff {cg_gen['value'] - cgpt['value']:.3e}) | CG iters {cg_gen['iters']} (symmetric "
+        f"{cgpt['iters']}) | rel_res {cg_gen['rel_res']:.3e} | value+grad {cg_gen['wall_s']:.3f} s (symmetric "
+        f"{cgpt['wall_s']:.3f} s) | launches {gen_launches}")
     _log_campaign("single pass", r)
     log(f"[iter] main path launches (two value+grads + the campaign, run once): {launches}")
     for b in (bench, cgpt):
@@ -882,6 +961,10 @@ def phase6_iterative():
         assert b["exhausted"] or b["rel_res"] <= 10 * ITER_TOL, f"solve at ls={b['ls']} not trusted: {b}"
     assert not cgpt["exhausted"] and cgpt["iters"] > 0, f"no PCG ran at ls={CG_LS}: {cgpt}"
     assert after_objective["fused_stationary_matvec_sym"] > 0, "the objective's PCG never ran the sym kernel"
+    assert np.isfinite(cg_gen["value"]) and not cg_gen["exhausted"], f"sym_matvec=False at ls={CG_LS}: {cg_gen}"
+    assert gen_launches["fused_stationary_matvec_sym"] == 0, f"sym_matvec=False ran the sym kernel: {gen_launches}"
+    assert gen_launches["fused_stationary_matvec"] >= cg_gen["iters"] > 0, \
+        f"sym_matvec=False: fewer general launches than PCG sweeps: {gen_launches}, {cg_gen['iters']}"
 
     mean, var = r["mean"], r["var"]
     assert mean.shape == (GRID * GRID,) and var.shape == (GRID * GRID,), (mean.shape, var.shape)
@@ -1321,6 +1404,7 @@ def main():
     unknown = [a for a in sys.argv[1:] if a != "--dense-breakdown"]
     if unknown:
         sys.exit(f"chip_smoke: unknown arguments {unknown}; usage: python3 chip_smoke.py [--dense-breakdown]")
+    t_start = time.perf_counter()
     card = phase0_environment()
     phase1_build()
     phase1_products()
@@ -1335,6 +1419,7 @@ def main():
     sms, mhz, peak = _fp32_peak_of_card()
     log(f"[card] {sms} SMs at max {mhz:.0f} MHz: FP32 FMA peak {peak / 1e12:.1f} TFLOP/s "
         f"(bounds use the data sheet's {FP32_PEAK / 1e12:.0f})")
+    log(f"[smoke] all phases took {time.perf_counter() - t_start:.1f} s")
 
     k_ms, p_ms = rbf_times[(5120, 10000)]
     rb, rby = _rbf_bound(5120, 10000, 2)
@@ -1354,7 +1439,11 @@ def main():
          "replaces": "gumbi_tpu/ops/pallas_kernels.py:309",
          "launches": iter_launches["fused_stationary_matvec"], "max_abs_err": fused_errs["general"],
          "ms": gk, "plain_ms": gp, "bound_ms": gb, "bound_fp32_ms": gb32, "bound_by": gby, "library_ms": None,
-         "shape": "10000x50000 d=2 r=513"},
+         "shape": "10000x50000 d=2 r=513", "ms_r65": fused_times[("general", 50_000, 50_000, 65)][0],
+         "ms_r1": fused_times[("general", 10_000, 50_000, 1)][0],
+         "ms_100000x100000_r65": fused_times[("general", 100_000, 100_000, 65)][0],
+         "ms_50000x50000_r64": fused_times[("general", 50_000, 50_000, 64)][0],
+         "ms_50000x50000_r1": fused_times[("general", 50_000, 50_000, 1)][0]},
         {"name": "fused_stationary_matvec_sym", "route": "cuda", "source": "gumbi_tpu_torch/csrc/fused_matvec.cu",
          "replaces": "gumbi_tpu/ops/pallas_kernels.py:471",
          "launches": iter_launches["fused_stationary_matvec_sym"], "max_abs_err": fused_errs["sym"],

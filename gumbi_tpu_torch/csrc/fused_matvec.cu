@@ -26,17 +26,9 @@
 // three TF32 passes on the tensor cores (3 * 2 n m r / 495 TFLOP/s: 2.0 ms
 // at n = m = 50,000, r = 65, against 4.9 ms at the 67 TFLOP/s FP32 FMA peak).
 //
-// The general kernel keeps its FP32 FMA product (one launch on the fit's
-// path): a CTA of 256 threads builds one 64 x 64 tile of K in shared memory
-// (16 entries a thread, coordinates staged 16 at a time, so any d works),
-// then multiplies it with 32-row slabs of V; each thread keeps a 4 x TN
-// block of the output (TN = RC / 16, RC the columns of V a CTA carries: 16,
-// 32, 64, 80 or 128) in registers; wider r runs as several column chunks,
-// each rebuilding its tiles.
-//
-// The symmetric kernel is the iterative fit's matvec (PCG, SLQ, LOVE), and
-// its time was the product, so both of its products, T V[j] and T^T V[i],
-// run on the tensor cores as tf32x3.cuh's 3xTF32 warpgroup product
+// Both kernels run their products on the tensor cores. The symmetric kernel
+// is the iterative fit's matvec (PCG, SLQ, LOVE); both of its products,
+// T V[j] and T^T V[i], run as tf32x3.cuh's 3xTF32 warpgroup product
 // (wgmma m64nNk8), in chunks of up to 72 columns (N = 72 for r = 65). A, the
 // tile or its transpose, comes from registers: each thread loads its
 // fragment from the f32 tile in shared memory either way round and splits
@@ -73,12 +65,62 @@
 //     larger requests to the general kernel.
 //
 // What still bounds it (one H100 at 700 W, n = 50,000, r = 65, 8.0 ms
-// against the 2.0 ms bound; tools/probe_sym_parts.py): leaving out the
+// against the 2.0 ms bound; tools/probe_matvec_parts.py): leaving out the
 // products saves 3.6 ms where the tensor cores need 2.3; leaving out the
 // tile build saves 2.0 ms; with both gone 2.5 ms remain, mostly fetching
 // V[i]'s hi and lo for every tile (37 KB, 11 GB a sweep from L2). The three
 // overlap little, because the build, the fetch and the products of a tile
 // take turns in one CTA per SM.
+//
+// The general kernel is the grid predict's cross-Gram against [alpha | W]
+// (10,000 x 50,000, r = 513: bound 3.1 ms), `iter_predict_mean` (r = 1) and
+// every sweep that the symmetric kernel does not take (past its scratch
+// gate, about 52,500 rows at r = 65, or IterConfig(sym_matvec=False)). It
+// runs the same product, wg_product<NTL, false> against V split once per
+// call by sym_split_v_kernel, with these choices:
+//   * 128 rows of x1 per CTA, two warpgroups of 64: each staged V chunk
+//     feeds both, which halves V's traffic from L2 against 64 rows (at
+//     r = 513 each tile pass fetches 64 x 520 x 8 bytes of hi and lo).
+//   * A column group per CTA: up to two chunks of 72 columns (GEN_GROUP),
+//     whose sums stay in registers across the CTA's whole walk over x2, so
+//     each K tile is built once per group: once per call for r <= 144,
+//     four times for r = 513 (7 x 72 + 16 padded columns). The last chunk
+//     of V is as narrow as the remainder (8 NTL_LAST columns) and rides in
+//     the last group: no launch covers less than a whole group. Two chunks
+//     is what the registers hold: 72 sums a consumer thread beside
+//     wg_product's working set (two steps in flight) fit its 224 registers
+//     (ptxas spills them at 200); a third chunk would need 36 more than the
+//     register file leaves beside the producer, and a 128 x 288 group in
+//     shared memory (147 KB) leaves no room for the K buffers and V ring.
+//   * The tile, off the products' path: a third, producer warpgroup
+//     builds each 128 x 64 tile once per group into one of two buffers
+//     while the two consumer warpgroups multiply the other (named barriers
+//     hand the buffers over; setmaxnreg moves registers from the producer
+//     to the consumers). It reads x1's 128 rows from a copy staged in
+//     shared memory once per call (up to 32 coordinates; through L1 past
+//     that) and evaluates every entry, then masks it. The consumers take
+//     the group chunk by chunk, each its 64 rows, while cp.async brings the
+//     next chunk (or the next tile's first) into the other stage of a
+//     two-stage ring of V chunks.
+//   * Enough CTAs, deterministically: the x2 tiles split into s contiguous
+//     segments, s the least number that makes row blocks x groups x s at
+//     least 352 CTAs (8/3 waves; fused_matvec_general_split, mirrored by
+//     hopper_kernels.general_split). At s = 1 each CTA writes out directly;
+//     else segment z writes its own (n_pad, rp) slot, one writer per entry,
+//     and gen_reduce_kernel adds the slots in order. No atomics: two calls
+//     on the same inputs agree bit for bit. Each tile's 64-term partial is
+//     summed from zero (each 8-deep step too) and then added to the running
+//     sum, as in the symmetric kernel.
+// One call is three launches at most: the split, the matvec over every row
+// block, group and segment, and at s > 1 the reduction.
+//
+// What bounds it (one H100 at 700 W, tools/probe_matvec_parts.py): at
+// 50,000^2, r = 65, 7.4 ms against the 2.0 ms bound; leaving out the build
+// gives 4.3 ms, leaving out the products 4.4, both 1.9 (mostly V's hi and
+// lo from L2, 11 GB a call at 128 rows a CTA), so the producer's build and
+// the consumers' products still take turns more than they overlap. At
+// 10,000 x 50,000, r = 513: 9.2 ms against 3.1; the loop alone takes 3.2,
+// 16 GB of V from L2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,22 +130,20 @@
 namespace {
 
 constexpr int TILE = 64;      // K tile edge (rows and columns)
-constexpr int NT = 256;       // threads per CTA
-constexpr int DC = 16;        // coordinates staged per pass
-constexpr int KC = 32;        // V rows per slab
-constexpr int TM = 4;         // output rows per thread (16 thread rows)
-constexpr int ENT = TILE * TILE / NT;  // K entries built per thread
 constexpr int SYM_T = 384;    // band-grid block of the symmetric kernel
-constexpr int SYM_LDK = TILE + 4;   // row stride of its K tile (mma fragment loads)
+constexpr int SYM_LDK = TILE + 4;   // row stride of a K tile (mma fragment loads)
 constexpr int SYM_NTL = 9;    // 8-column mma tiles per column chunk, at most (72 columns)
-constexpr int SYM_NT = 256;   // threads per CTA of the symmetric kernel: two warpgroups
-// Measurement builds only (tools/probe_sym_parts.py): bit 0 leaves out the
+constexpr int SYM_NT = 256;   // threads per CTA of either matvec kernel: two warpgroups
+// Measurement builds only (tools/probe_matvec_parts.py): bit 0 leaves out the
 // tile build, bit 1 the products. Every other build has 0 here.
 #ifndef SYM_PROBE_SKIP
 #define SYM_PROBE_SKIP 0
 #endif
 constexpr int SYM_DEPTH = 2;  // 8-deep wgmma steps in flight per warpgroup (at most 3; 3 measured no faster)
-constexpr int SYM_ENT = TILE * TILE / SYM_NT;  // K entries built per thread there
+constexpr int SYM_ENT = TILE * TILE / SYM_NT;  // K entries built per thread and 64 x 64 tile
+constexpr int GEN_ROWS = 2 * TILE;  // rows of x1 per CTA of the general kernel, one 64-row half per warpgroup
+constexpr int GEN_GROUP = 2;  // column chunks per CTA of the general kernel (a column group)
+constexpr int GEN_TARGET_CTAS = 352;  // 8/3 waves of one CTA per SM on 132 SMs
 
 enum Kind { EXPQUAD = 0, MATERN12 = 1, EXPONENTIAL = 2, MATERN32 = 3, MATERN52 = 4 };
 
@@ -127,186 +167,64 @@ __device__ __forceinline__ float kfun(int kind, float r2) {
   }
 }
 
-struct Smem {
-  float a[DC][TILE];
-  float b[DC][TILE];
-  float k[TILE][TILE + 1];
-};
 struct SymSmem {
   float k[TILE][SYM_LDK];
 };
 
-// sK[r][c] = k(|a[ra0 + r] - b[rb0 + c]|^2) for r < na, c < nbc; 0 elsewhere.
-__device__ void build_tile(Smem& s, const float* __restrict__ a, int64_t ra0, int na,
-                           const float* __restrict__ b, int64_t rb0, int nbc, int d,
-                           int kind) {
-  const int tid = threadIdx.x;
-  const int col = tid % TILE;
-  const int row0 = tid / TILE;  // rows row0 + (NT / TILE) * e
-  float sq[ENT];
+// The kernel values of N entries that share a column: coordinate k of entry
+// e's row is row_at(e, k) (0 where the row is masked), the column's
+// coordinates bp[0 .. d). The squared distances are summed in coordinate
+// order with __fmul_rn/__fadd_rn; then every entry is evaluated, with no
+// branch around an evaluation, so a thread's N of them overlap. sym_tile
+// and produce_tile take their entries from here; the caller masks them.
+template <int KIND, int N, class RowAt>
+__device__ __forceinline__ void kernel_entries(float (&kv)[N], RowAt row_at, const float* __restrict__ bp, int d) {
 #pragma unroll
-  for (int e = 0; e < ENT; ++e) sq[e] = 0.0f;
-  for (int k0 = 0; k0 < d; k0 += DC) {
-    const int kc = min(DC, d - k0);
-    for (int idx = tid; idx < TILE * DC; idx += NT) {
-      const int r = idx / DC, k = idx % DC;
-      s.a[k][r] = (k < kc && r < na) ? a[(ra0 + r) * d + k0 + k] : 0.0f;
-      s.b[k][r] = (k < kc && r < nbc) ? b[(rb0 + r) * d + k0 + k] : 0.0f;
-    }
-    __syncthreads();
-    for (int k = 0; k < kc; ++k) {
-      const float bv = s.b[k][col];
+  for (int e = 0; e < N; ++e) kv[e] = 0.0f;
+  for (int k = 0; k < d; ++k) {
+    const float bv = bp[k];
 #pragma unroll
-      for (int e = 0; e < ENT; ++e) {
-        const float diff = s.a[k][row0 + (NT / TILE) * e] - bv;
-        sq[e] = __fadd_rn(sq[e], __fmul_rn(diff, diff));
-      }
+    for (int e = 0; e < N; ++e) {
+      const float diff = row_at(e, k) - bv;
+      kv[e] = __fadd_rn(kv[e], __fmul_rn(diff, diff));
     }
-    __syncthreads();
   }
 #pragma unroll
-  for (int e = 0; e < ENT; ++e) {
-    const int r = row0 + (NT / TILE) * e;
-    s.k[r][col] = (r < na && col < nbc) ? kfun(kind, sq[e]) : 0.0f;
-  }
-  __syncthreads();
+  for (int e = 0; e < N; ++e) kv[e] = kfun(KIND, kv[e]);
 }
 
-// acc[q][c] += sum_t S[row(q)][t] * V[v0 + t][c0 + col(c)]
-// over the tile's TILE inner indices; V rows >= v0 + nv and columns >= r
-// read as 0. Thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16 q and
-// columns tx + 16 c.
-template <int TN>
-__device__ void tile_product(float (&acc)[TM][TN], const Smem& s,
-                             float (*sv)[16 * TN], const float* __restrict__ v,
-                             int64_t v0, int nv, int64_t c0, int64_t r) {
-  constexpr int RC = 16 * TN;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  // Two-level sum: the tile's 64 products go into `part`, which is then
-  // added to `acc`, so a long row sums in O(64 + m / 64) steps, not O(m).
-  float part[TM][TN];
-#pragma unroll
-  for (int q = 0; q < TM; ++q)
-#pragma unroll
-    for (int c = 0; c < TN; ++c) part[q][c] = 0.0f;
-  for (int t0 = 0; t0 < TILE; t0 += KC) {
-    for (int idx = tid; idx < KC * RC; idx += NT) {
-      const int t = idx / RC, c = idx % RC;
-      const int64_t gr = v0 + t0 + t, gc = c0 + c;
-      sv[t][c] = (t0 + t < nv && gc < r) ? v[gr * r + gc] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int t = 0; t < KC; ++t) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int q = 0; q < TM; ++q)
-        av[q] = s.k[ty + 16 * q][t0 + t];
-#pragma unroll
-      for (int c = 0; c < TN; ++c) bv[c] = sv[t][tx + 16 * c];
-#pragma unroll
-      for (int q = 0; q < TM; ++q)
-#pragma unroll
-        for (int c = 0; c < TN; ++c) part[q][c] = fmaf(av[q], bv[c], part[q][c]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int q = 0; q < TM; ++q)
-#pragma unroll
-    for (int c = 0; c < TN; ++c) acc[q][c] += part[q][c];
-}
-
-template <int TN>
-__device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
-#pragma unroll
-  for (int q = 0; q < TM; ++q)
-#pragma unroll
-    for (int c = 0; c < TN; ++c) acc[q][c] = 0.0f;
-}
-
-// General: CTA (blockIdx.x, blockIdx.y) owns rows [64 x, 64 x + 64) and
-// columns [col_base + RC y, + RC) of out, and loops over all of x2.
-template <int TN>
-__global__ void __launch_bounds__(NT)
-fused_matvec_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                    const float* __restrict__ v, float* __restrict__ out, int64_t n,
-                    int64_t m, int64_t r, int d, int kind, int64_t col_base) {
-  constexpr int RC = 16 * TN;
-  __shared__ Smem s;
-  __shared__ float sv[KC][RC];
-  const int64_t i0 = (int64_t)blockIdx.x * TILE;
-  const int64_t c0 = col_base + (int64_t)blockIdx.y * RC;
-  const int ni = (int)min((int64_t)TILE, n - i0);
-  float acc[TM][TN];
-  zero(acc);
-  for (int64_t j0 = 0; j0 < m; j0 += TILE) {
-    const int nj = (int)min((int64_t)TILE, m - j0);
-    build_tile(s, a, i0, ni, b, j0, nj, d, kind);
-    tile_product<TN>(acc, s, sv, v, j0, nj, c0, r);
-  }
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int q = 0; q < TM; ++q) {
-    const int64_t row = i0 + ty + 16 * q;
-    if (row >= n) continue;
-#pragma unroll
-    for (int c = 0; c < TN; ++c) {
-      const int64_t col = c0 + tx + 16 * c;
-      if (col < r) out[row * r + col] = acc[q][c];
-    }
-  }
-}
-
+// sK[r][c] = k(|a[ra0 + r] - a[rb0 + c]|^2) for r < na, c < nbc; 0 elsewhere.
+// No staging and no barriers (one CTA per SM, where every barrier is idle
+// time): a thread reads its column's coordinates and its 16 rows' (the same
+// address across a warp) straight from device memory through L1, any d. The
+// caller synchronises before the tile is read.
 template <int KIND>
-__device__ __forceinline__ void store_tile(SymSmem& s, const float (&sq)[SYM_ENT], int row0, int col, int na,
-                                           bool col_ok) {
-  // every entry is evaluated, then masked: no branch around a kernel
-  // evaluation, so a thread's 16 of them overlap
-  float kv[SYM_ENT];
-#pragma unroll
-  for (int e = 0; e < SYM_ENT; ++e) kv[e] = kfun(KIND, sq[e]);
-#pragma unroll
-  for (int e = 0; e < SYM_ENT; ++e) {
-    const int r = row0 + (SYM_NT / TILE) * e;
-    s.k[r][col] = (r < na && col_ok) ? kv[e] : 0.0f;
-  }
-}
-
-// build_tile without the staging and its barriers, for the symmetric kernel
-// (one CTA per SM, where every barrier is idle time): a thread reads its
-// column's coordinates and its 16 rows' (the same address across a warp)
-// straight from device memory through L1, any d. Same arithmetic, same
-// order. The caller synchronises before the tile is read.
-__device__ __forceinline__ void build_tile_direct(SymSmem& s, const float* __restrict__ a, int64_t ra0,
-                                                  int na, int64_t rb0, int nbc, int d, int kind) {
+__device__ __forceinline__ void sym_tile(SymSmem& s, const float* __restrict__ a, int64_t ra0, int na, int64_t rb0,
+                                         int nbc, int d) {
   constexpr int RS = SYM_NT / TILE;  // rows row0 + RS * e
   const int col = threadIdx.x % TILE;
   const int row0 = threadIdx.x / TILE;
   const bool col_ok = col < nbc;
-  const float* bp = a + (rb0 + (col_ok ? col : 0)) * d;
   const float* ap = a + (ra0 + row0) * d;
-  float sq[SYM_ENT];
+  float kv[SYM_ENT];
+  kernel_entries<KIND>(
+      kv, [&](int e, int k) { return row0 + RS * e < na ? ap[(int64_t)RS * e * d + k] : 0.0f; },
+      a + (rb0 + (col_ok ? col : 0)) * d, d);
 #pragma unroll
-  for (int e = 0; e < SYM_ENT; ++e) sq[e] = 0.0f;
-  for (int k = 0; k < d; ++k) {
-    const float bv = bp[k];
-#pragma unroll
-    for (int e = 0; e < SYM_ENT; ++e) {
-      const float av = (row0 + RS * e < na) ? ap[(int64_t)RS * e * d + k] : 0.0f;
-      const float diff = av - bv;
-      sq[e] = __fadd_rn(sq[e], __fmul_rn(diff, diff));
-    }
+  for (int e = 0; e < SYM_ENT; ++e) {
+    const int r = row0 + RS * e;
+    s.k[r][col] = (r < na && col_ok) ? kv[e] : 0.0f;
   }
-  // One branch on the kind for the whole tile, so the 16 kernel evaluations
-  // of a thread are straight-line code and overlap.
-  switch (kind) {
-    case EXPQUAD: store_tile<EXPQUAD>(s, sq, row0, col, na, col_ok); break;
-    case MATERN12: store_tile<MATERN12>(s, sq, row0, col, na, col_ok); break;
-    case EXPONENTIAL: store_tile<EXPONENTIAL>(s, sq, row0, col, na, col_ok); break;
-    case MATERN32: store_tile<MATERN32>(s, sq, row0, col, na, col_ok); break;
-    default: store_tile<MATERN52>(s, sq, row0, col, na, col_ok); break;
+}
+
+__device__ __forceinline__ void build_tile_direct(SymSmem& s, const float* __restrict__ a, int64_t ra0, int na,
+                                                  int64_t rb0, int nbc, int d, int kind) {
+  switch (kind) {  // one branch on the kind for the whole tile
+    case EXPQUAD: sym_tile<EXPQUAD>(s, a, ra0, na, rb0, nbc, d); break;
+    case MATERN12: sym_tile<MATERN12>(s, a, ra0, na, rb0, nbc, d); break;
+    case EXPONENTIAL: sym_tile<EXPONENTIAL>(s, a, ra0, na, rb0, nbc, d); break;
+    case MATERN32: sym_tile<MATERN32>(s, a, ra0, na, rb0, nbc, d); break;
+    default: sym_tile<MATERN52>(s, a, ra0, na, rb0, nbc, d); break;
   }
 }
 
@@ -507,6 +425,250 @@ __global__ void sym_reduce_kernel(const float* __restrict__ own, const float* __
   out[idx] = acc;
 }
 
+// ---------------------------------------------------------------------
+// General: out = K(x1, x2) V for any x1 (n rows) and x2 (m rows).
+// ---------------------------------------------------------------------
+
+constexpr int GEN_THREADS = 3 * 128;  // two consumer warpgroups, one producer warpgroup
+constexpr int GEN_LDK = SYM_LDK;      // row stride of a K tile
+constexpr int GEN_KTILE = GEN_ROWS * GEN_LDK;  // floats of one 128 x 64 K tile
+// Registers a thread after the split (setmaxnreg): 256 x consumer + 128 x
+// producer <= 65,536. Measured on the card: the consumers spill at 200
+// registers and below; from 208 to 224 the times are alike; 232 leaves the
+// producer 48, where it spills, and is slower.
+constexpr int GEN_CONSUMER_REGS = 224, GEN_PRODUCER_REGS = 56;
+// Named barriers (0 is __syncthreads): the consumers' own, then "tile b
+// built" and "tile b free" for the two K buffers.
+constexpr int BAR_CONSUMERS = 1, BAR_FULL = 2, BAR_EMPTY = 4;
+// Up to this many coordinates, the CTA's 128 rows of x1 are staged in shared
+// memory once per call (zero past n); a wider x1 is read through L1.
+constexpr int GEN_D_SMEM = 32;
+// A CTA's shared memory: two 128 x 64 K tiles, a two-stage ring of V chunks
+// (each stage the hi and lo B operands of up to 72 columns), then the staged
+// rows of x1 (d x 128 floats, when d <= GEN_D_SMEM).
+constexpr int GEN_SMEM_BYTES = (2 * GEN_KTILE + 2 * 2 * 512 * SYM_NTL) * (int)sizeof(float);
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// The producer warpgroup builds the CTA's 128 x 64 K tile for x2 rows
+// rb0 .. rb0 + nbc: thread p takes column p % 64 and rows p / 64 + 2 e, in
+// four passes of 16 rows, through kernel_entries, masked (zero past row
+// `na` or column `nbc`). Rows come from the staged copy `sa` ([d][128],
+// zero past n) or, STAGED false, from `a` through L1.
+template <int KIND, bool STAGED>
+__device__ __forceinline__ void produce_tile(float* kt, const float* sa, const float* __restrict__ a, int64_t i0,
+                                             int na, const float* __restrict__ b, int64_t rb0, int nbc, int d) {
+  const int p = threadIdx.x - 2 * 128;
+  const int col = p % TILE, rg = p / TILE;
+  const bool col_ok = col < nbc;
+  const float* bp = b + (rb0 + (col_ok ? col : 0)) * d;
+#pragma unroll 1
+  for (int q = 0; q < 4; ++q) {
+    const int r0 = rg + 32 * q;  // rows r0 + 2 e, e < 16
+    const float* ap = a + (i0 + r0) * d;  // STAGED false: row r0 + 2 e at ap[2 e d]
+    float kv[16];
+    kernel_entries<KIND>(
+        kv,
+        [&](int e, int k) {
+          const int row = r0 + 2 * e;
+          return STAGED ? sa[k * GEN_ROWS + row] : (row < na ? ap[2 * e * d + k] : 0.0f);
+        },
+        bp, d);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int row = r0 + 2 * e;
+      kt[row * GEN_LDK + col] = (row < na && col_ok) ? kv[e] : 0.0f;
+    }
+  }
+}
+
+template <bool STAGED>
+__device__ __forceinline__ void produce_tile_kind(int kind, float* kt, const float* sa, const float* __restrict__ a,
+                                                  int64_t i0, int na, const float* __restrict__ b, int64_t rb0,
+                                                  int nbc, int d) {
+  switch (kind) {  // one branch on the kind for the whole tile
+    case EXPQUAD: produce_tile<EXPQUAD, STAGED>(kt, sa, a, i0, na, b, rb0, nbc, d); break;
+    case MATERN12: produce_tile<MATERN12, STAGED>(kt, sa, a, i0, na, b, rb0, nbc, d); break;
+    case EXPONENTIAL: produce_tile<EXPONENTIAL, STAGED>(kt, sa, a, i0, na, b, rb0, nbc, d); break;
+    case MATERN32: produce_tile<MATERN32, STAGED>(kt, sa, a, i0, na, b, rb0, nbc, d); break;
+    default: produce_tile<MATERN52, STAGED>(kt, sa, a, i0, na, b, rb0, nbc, d); break;
+  }
+}
+
+// The hi and lo B operands of V chunk q (8 ntl columns from column 72 q)
+// of row tile `tile` into one stage of the ring; ntl is NTL_LAST for the
+// last chunk of V, else SYM_NTL. Consumer threads only (0 .. 255).
+template <int NTL_LAST>
+__device__ __forceinline__ void load_chunk(float* stage, const float* vs, int64_t tile, int q, int n_chunks,
+                                           int64_t m_pad, int64_t rp) {
+  float* hi = stage;
+  float* lo = stage + 512 * SYM_NTL;
+  if (NTL_LAST != SYM_NTL && q == n_chunks - 1)
+    load_v<NTL_LAST>(hi, lo, vs, tile, (int64_t)q * SYM_NTL, m_pad, rp);
+  else
+    load_v<SYM_NTL>(hi, lo, vs, tile, (int64_t)q * SYM_NTL, m_pad, rp);
+}
+
+// CTA (x, y, z) owns rows [128 x, 128 x + 128) of out, the GEN_GROUP
+// chunks of V from chunk GEN_GROUP y (a column group; fewer in the last
+// group where the chunks run out, e.g. the one chunk of r <= 72) and segment z of the x2 tiles, [mt z / s, mt (z + 1) / s) with
+// mt = m_pad / 64 and s = gridDim.z. `vs` is V split and laid out by
+// sym_split_v_kernel (m_pad rows, rp columns). Warp-specialised:
+//   * the producer warpgroup builds each 128 x 64 K tile once, into one of
+//     two buffers, while the consumers multiply the other;
+//   * consumer warpgroup h multiplies its 64 rows of the tile with each
+//     chunk of the group in turn: a two-stage ring of V chunks, which both
+//     share, brings the next chunk (or the next tile's first) in with
+//     cp.async while the current one is multiplied. Each tile's 64-term
+//     partial is summed from zero (each 8-deep step too) and added to the
+//     running sum in registers.
+// At s = 1 the sums go to `out` (n x r); else to slot z of `slots`
+// (s, n_pad, rp), which gen_reduce_kernel adds in order.
+template <int NTL_LAST>
+__global__ void __launch_bounds__(GEN_THREADS, 1)
+fused_matvec_gen_kernel(const float* __restrict__ a, const float* __restrict__ b, const float* __restrict__ vs,
+                        float* __restrict__ out, float* __restrict__ slots, int64_t n, int64_t m, int64_t r,
+                        int64_t n_pad, int64_t m_pad, int64_t rp, int d, int kind, int n_chunks) {
+  using namespace tf32x3;
+  extern __shared__ __align__(128) float smem[];
+  float* ktiles = smem;                       // [2][GEN_ROWS][GEN_LDK]
+  float* ring = smem + 2 * GEN_KTILE;         // [2 stages][hi, lo][512 SYM_NTL]
+  float* sa = ring + 2 * 2 * 512 * SYM_NTL;   // [d][GEN_ROWS] when staged
+  constexpr int STAGE = 2 * 512 * SYM_NTL;
+  const int64_t i0 = (int64_t)blockIdx.x * GEN_ROWS;
+  const int64_t mt = m_pad / TILE;
+  const int64_t t_begin = blockIdx.z * mt / gridDim.z, t_end = (blockIdx.z + 1) * mt / gridDim.z;
+  const int n_tiles = (int)(t_end - t_begin);
+  const bool staged = d <= GEN_D_SMEM;
+  if (staged)
+    for (int idx = threadIdx.x; idx < d * GEN_ROWS; idx += GEN_THREADS) {
+      const int k = idx / GEN_ROWS, row = idx % GEN_ROWS;
+      sa[idx] = i0 + row < n ? a[(i0 + row) * d + k] : 0.0f;
+    }
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * 128) {
+    // ---- producer warpgroup: the K tiles ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(GEN_PRODUCER_REGS));
+    const int na = (int)min((int64_t)GEN_ROWS, n - i0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int buf = it & 1;
+      const int64_t j0 = (t_begin + it) * TILE;
+      if (it >= 2) bar_sync(BAR_EMPTY + buf, GEN_THREADS);  // the consumers are done with tile it - 2
+      if (!(SYM_PROBE_SKIP & 1)) {
+        const int nj = (int)min((int64_t)TILE, m - j0);
+        if (staged)
+          produce_tile_kind<true>(kind, ktiles + buf * GEN_KTILE, sa, a, i0, na, b, j0, nj, d);
+        else
+          produce_tile_kind<false>(kind, ktiles + buf * GEN_KTILE, sa, a, i0, na, b, j0, nj, d);
+      }
+      // the tile after next's x2 coordinates into L1
+      const int p = threadIdx.x - 2 * 128;
+      if (it + 2 < n_tiles && p * 32 < TILE * d)
+        asm volatile("prefetch.global.L1 [%0];" ::"l"(b + (j0 + 2 * TILE) * d + p * 32));
+      bar_arrive(BAR_FULL + buf, GEN_THREADS);
+    }
+  } else {
+    // ---- consumer warpgroups: the products ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(GEN_CONSUMER_REGS));
+    constexpr int G = GEN_GROUP;
+    const int q0 = blockIdx.y * G;
+    const int nch = min(G, n_chunks - q0);
+    const int wg = threadIdx.x / 128;
+    float acc[G][4 * SYM_NTL];
+#pragma unroll
+    for (int c = 0; c < G; ++c)
+#pragma unroll
+      for (int e = 0; e < 4 * SYM_NTL; ++e) acc[c][e] = 0.0f;
+    int st = 0;
+    load_chunk<NTL_LAST>(ring, vs, t_begin, q0, n_chunks, m_pad, rp);
+    cp_async_commit();
+    for (int it = 0; it < n_tiles; ++it) {
+      const int buf = it & 1;
+      const int64_t t = t_begin + it;
+      bar_sync(BAR_FULL + buf, GEN_THREADS);  // tile it is built
+      const float* T = ktiles + buf * GEN_KTILE + TILE * wg * GEN_LDK;
+#pragma unroll
+      for (int c = 0; c < G; ++c) {
+        if (c < nch) {  // uniform across the CTA
+          cp_async_wait<0>();
+          fence_async_smem();
+          // this stage has landed for every consumer, and every consumer
+          // is done with the other stage
+          bar_sync(BAR_CONSUMERS, 2 * 128);
+          float* other = ring + (st ^ 1) * STAGE;
+          if (c + 1 < nch)
+            load_chunk<NTL_LAST>(other, vs, t, q0 + c + 1, n_chunks, m_pad, rp);
+          else if (it + 1 < n_tiles)
+            load_chunk<NTL_LAST>(other, vs, t + 1, q0, n_chunks, m_pad, rp);
+          cp_async_commit();
+          const float* bhi = ring + st * STAGE;
+          const float* blo = bhi + 512 * SYM_NTL;
+          if (!(SYM_PROBE_SKIP & 2)) {
+            if (NTL_LAST != SYM_NTL && q0 + c == n_chunks - 1) {
+              float part[4 * NTL_LAST];
+#pragma unroll
+              for (int e = 0; e < 4 * NTL_LAST; ++e) part[e] = 0.0f;
+              wg_product<NTL_LAST, false>(part, T, bhi, blo);
+#pragma unroll
+              for (int e = 0; e < 4 * NTL_LAST; ++e) acc[c][e] += part[e];
+            } else {
+              float part[4 * SYM_NTL];
+#pragma unroll
+              for (int e = 0; e < 4 * SYM_NTL; ++e) part[e] = 0.0f;
+              wg_product<SYM_NTL, false>(part, T, bhi, blo);
+#pragma unroll
+              for (int e = 0; e < 4 * SYM_NTL; ++e) acc[c][e] += part[e];
+            }
+          }
+          st ^= 1;
+        }
+      }
+      if (it + 2 < n_tiles) bar_arrive(BAR_EMPTY + buf, GEN_THREADS);  // the producer may rebuild this buffer
+    }
+
+    const int64_t row0 = i0 + TILE * wg + 16 * ((threadIdx.x / 32) % 4);
+#pragma unroll
+    for (int c = 0; c < G; ++c) {
+      if (c >= nch) continue;
+      const int q = q0 + c;
+      const int ntl = q == n_chunks - 1 ? NTL_LAST : SYM_NTL;
+      const int64_t c0 = (int64_t)q * 8 * SYM_NTL;
+#pragma unroll
+      for (int nt = 0; nt < SYM_NTL; ++nt) {
+        if (nt >= ntl) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int64_t row = row0 + acc_row(2 * h), col = c0 + 8 * nt + acc_col(0);
+          const float x = acc[c][4 * nt + 2 * h], y = acc[c][4 * nt + 2 * h + 1];
+          if (gridDim.z == 1) {
+            if (row < n && col < r) out[row * r + col] = x;
+            if (row < n && col + 1 < r) out[row * r + col + 1] = y;
+          } else {
+            *reinterpret_cast<float2*>(slots + ((int64_t)blockIdx.z * n_pad + row) * rp + col) = make_float2(x, y);
+          }
+        }
+      }
+    }
+  }
+}
+
+// out[row, col] = the s segment slots in order.
+__global__ void gen_reduce_kernel(const float* __restrict__ slots, float* __restrict__ out, int64_t n, int64_t r,
+                                  int64_t n_pad, int64_t rp, int s) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n * r) return;
+  const int64_t off = (idx / r) * rp + idx % r;
+  float acc = 0.0f;
+  for (int k = 0; k < s; ++k) acc += slots[k * n_pad * rp + off];
+  out[idx] = acc;
+}
+
 // out (m x r, r <= 72) = t v for row-major t (m x k) and v (k x r), or,
 // TRANS, t^T v for row-major t (k x m): the symmetric kernel's warpgroup
 // product alone, on zero-padded 64 x 64 tiles. One warpgroup a CTA.
@@ -559,65 +721,6 @@ product_test_kernel(const float* __restrict__ t, const float* __restrict__ v, fl
     }
 }
 
-// Column chunks: the smallest RC >= r up to 128; wider r runs full
-// 128-column chunks, then one launch for the remainder.
-int pick_tn(int64_t cols) {
-  if (cols <= 16) return 1;
-  if (cols <= 32) return 2;
-  if (cols <= 64) return 4;
-  if (cols <= 80) return 5;
-  return 8;
-}
-
-template <typename Launch>
-int for_each_chunk(int64_t r, Launch launch) {
-  const int64_t full = r / 128;
-  const int64_t rem = r - full * 128;
-  if (full > 65535) return (int)cudaErrorInvalidConfiguration;
-  if (full > 0) {
-    launch(8, full, (int64_t)0);
-    const int err = (int)cudaGetLastError();
-    if (err) return err;
-  }
-  if (rem > 0) {
-    launch(pick_tn(rem), (int64_t)1, full * 128);
-    const int err = (int)cudaGetLastError();
-    if (err) return err;
-  }
-  return 0;
-}
-
-}  // namespace
-
-// Plain C entry points for ctypes. Pointers are device pointers, all arrays
-// row-major and contiguous; launches go on `stream` and do not synchronise.
-// Each returns the first CUDA error of its launches (0 = success).
-
-extern "C" int fused_matvec_f32(const float* a, const float* b, const float* v, float* out,
-                                long long n, long long m, long long r, int d, int kind,
-                                void* stream) {
-  if (n <= 0 || m <= 0 || r <= 0 || d <= 0 || kind < 0 || kind > 4)
-    return (int)cudaErrorInvalidValue;
-  const long long gx = (n + TILE - 1) / TILE;
-  if (gx > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t st = (cudaStream_t)stream;
-  return for_each_chunk(r, [&](int tn, int64_t chunks, int64_t base) {
-    dim3 grid((unsigned)gx, (unsigned)chunks);
-    switch (tn) {
-      case 1: fused_matvec_kernel<1><<<grid, NT, 0, st>>>(a, b, v, out, n, m, r, d, kind, base); break;
-      case 2: fused_matvec_kernel<2><<<grid, NT, 0, st>>>(a, b, v, out, n, m, r, d, kind, base); break;
-      case 4: fused_matvec_kernel<4><<<grid, NT, 0, st>>>(a, b, v, out, n, m, r, d, kind, base); break;
-      case 5: fused_matvec_kernel<5><<<grid, NT, 0, st>>>(a, b, v, out, n, m, r, d, kind, base); break;
-      default: fused_matvec_kernel<8><<<grid, NT, 0, st>>>(a, b, v, out, n, m, r, d, kind, base); break;
-    }
-  });
-}
-
-// The band-grid block, for the wrapper's scratch arithmetic.
-extern "C" int fused_matvec_sym_tile(void) { return SYM_T; }
-
-namespace {
-
 // 8-column mma tiles of a column chunk of `cols` <= 72 columns.
 int pick_ntl(int64_t cols) {
   if (cols <= 8) return 1;
@@ -625,6 +728,12 @@ int pick_ntl(int64_t cols) {
   if (cols <= 32) return 4;
   if (cols <= 64) return 8;
   return SYM_NTL;
+}
+
+// Full chunks of 72 columns, then the remainder's chunk of 8, 16, 32, 64 or 72.
+int64_t padded_cols(int64_t r) {
+  const int64_t full = r / (8 * SYM_NTL), rem = r - full * 8 * SYM_NTL;
+  return full * 8 * SYM_NTL + (rem > 0 ? 8 * pick_ntl(rem) : 0);
 }
 
 template <int NTL>
@@ -638,14 +747,99 @@ cudaError_t launch_sym(dim3 grid, cudaStream_t st, const float* a, const float* 
   return cudaGetLastError();
 }
 
+struct GenArgs {
+  const float *a, *b, *vs;
+  float *out, *slots;
+  int64_t n, m, r, n_pad, m_pad, rp;
+  int d, kind, n_chunks;
+};
+
+template <int NTL_LAST>
+cudaError_t launch_gen(dim3 grid, cudaStream_t st, const GenArgs& g) {
+  const int smem = GEN_SMEM_BYTES + (g.d <= GEN_D_SMEM ? g.d * GEN_ROWS * (int)sizeof(float) : 0);
+  cudaError_t err = cudaFuncSetAttribute(fused_matvec_gen_kernel<NTL_LAST>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  fused_matvec_gen_kernel<NTL_LAST><<<grid, GEN_THREADS, smem, st>>>(
+      g.a, g.b, g.vs, g.out, g.slots, g.n, g.m, g.r, g.n_pad, g.m_pad, g.rp, g.d, g.kind, g.n_chunks);
+  return cudaGetLastError();
+}
+
+// One kernel per width of V's last chunk (8 ntl_last columns).
+cudaError_t launch_gen_width(int ntl_last, dim3 grid, cudaStream_t st, const GenArgs& g) {
+  switch (ntl_last) {
+    case 1: return launch_gen<1>(grid, st, g);
+    case 2: return launch_gen<2>(grid, st, g);
+    case 4: return launch_gen<4>(grid, st, g);
+    case 8: return launch_gen<8>(grid, st, g);
+    default: return launch_gen<SYM_NTL>(grid, st, g);
+  }
+}
+
 }  // namespace
 
-// Columns of the zero-padded V and of the scratch for r columns: full
-// chunks of 72, then the remainder's chunk of 8, 16, 32, 64 or 72.
-extern "C" long long fused_matvec_sym_padded_cols(long long r) {
-  const long long full = r / (8 * SYM_NTL), rem = r - full * 8 * SYM_NTL;
-  return full * 8 * SYM_NTL + (rem > 0 ? 8 * pick_ntl(rem) : 0);
+// Plain C entry points for ctypes. Pointers are device pointers, all arrays
+// row-major and contiguous; launches go on `stream` and do not synchronise.
+// Each returns the first CUDA error of its launches (0 = success).
+
+// The general kernel's split of an (n x m) Gram against r columns, for the
+// wrapper's allocations (hopper_kernels.general_split mirrors it):
+// out[0] = s, the x2 segments: the least s that makes row blocks x column
+// groups x s at least GEN_TARGET_CTAS CTAs, at most one per x2 tile;
+// out[1] = n_pad (n rounded up to 128 rows), out[2] = m_pad (m rounded up
+// to 64), out[3] = rp (the padded columns of V and of a slot).
+extern "C" void fused_matvec_general_split(long long n, long long m, long long r, long long* out) {
+  const long long n_pad = (n + GEN_ROWS - 1) / GEN_ROWS * GEN_ROWS;
+  const long long m_pad = (m + TILE - 1) / TILE * TILE;
+  const long long rp = padded_cols(r);
+  const long long n_chunks = (rp + 8 * SYM_NTL - 1) / (8 * SYM_NTL);
+  const long long groups = (n_chunks + GEN_GROUP - 1) / GEN_GROUP;
+  const long long ctas = (n_pad / GEN_ROWS) * groups;
+  const long long s = (GEN_TARGET_CTAS + ctas - 1) / ctas;
+  out[0] = s < m_pad / TILE ? s : m_pad / TILE;
+  out[1] = n_pad;
+  out[2] = m_pad;
+  out[3] = rp;
 }
+
+// `a` (n, d) and `b` (m, d) are x1 and x2 pre-scaled by the lengthscales,
+// `v` is (m, r). `vsplit` (2 * m_pad * rp floats) receives V split into
+// TF32 hi and lo in the tensor cores' layout; `slots` holds s * n_pad * rp
+// floats when s > 1 and is not touched at s = 1 (n_pad, m_pad and rp as
+// fused_matvec_general_split gives them; s may be any of 1 .. m_pad / 64).
+// Launches: the split, one matvec launch over every row block, column group
+// and segment, and at s > 1 the reduction.
+extern "C" int fused_matvec_f32(const float* a, const float* b, const float* v, float* vsplit, float* slots,
+                                float* out, long long n, long long m, long long r, int d, int kind, int s,
+                                void* stream) {
+  if (n <= 0 || m <= 0 || r <= 0 || d <= 0 || kind < 0 || kind > 4) return (int)cudaErrorInvalidValue;
+  long long split[4];
+  fused_matvec_general_split(n, m, r, split);
+  const long long n_pad = split[1], m_pad = split[2], rp = split[3];
+  if (s < 1 || s > m_pad / TILE || s > 65535) return (int)cudaErrorInvalidValue;
+  const long long n_chunks = (rp + 8 * SYM_NTL - 1) / (8 * SYM_NTL);
+  const long long rb = n_pad / GEN_ROWS, groups = (n_chunks + GEN_GROUP - 1) / GEN_GROUP;
+  const long long split_blocks = (m_pad * rp + 255) / 256, blocks = (n * r + 255) / 256;
+  if (rb > 2147483647LL || groups > 65535 || split_blocks > 2147483647LL || blocks > 2147483647LL)
+    return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t st = (cudaStream_t)stream;
+  sym_split_v_kernel<<<(unsigned)split_blocks, 256, 0, st>>>(v, vsplit, m, r, m_pad, rp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const GenArgs g{a, b, vsplit, out, slots, n, m, r, n_pad, m_pad, rp, d, kind, (int)n_chunks};
+  const dim3 grid((unsigned)rb, (unsigned)groups, (unsigned)s);
+  const int ntl_last = (int)(rp - (n_chunks - 1) * 8 * SYM_NTL) / 8;
+  err = launch_gen_width(ntl_last, grid, st, g);
+  if (err != cudaSuccess || s == 1) return (int)err;
+  gen_reduce_kernel<<<(unsigned)blocks, 256, 0, st>>>(slots, out, n, r, n_pad, rp, s);
+  return (int)cudaGetLastError();
+}
+
+// The band-grid block, for the wrapper's scratch arithmetic.
+extern "C" int fused_matvec_sym_tile(void) { return SYM_T; }
+
+// Columns of the zero-padded V and of the scratch for r columns.
+extern "C" long long fused_matvec_sym_padded_cols(long long r) { return padded_cols(r); }
 
 // `v` is (n, r) row-major. `vsplit` (2 * n_pad * rp floats) receives V split
 // into TF32 hi and lo in the tensor cores' layout, n_pad = n rounded up to

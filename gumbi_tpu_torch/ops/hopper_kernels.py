@@ -13,11 +13,14 @@ and K(x, x)·V for a unit-amplitude stationary kernel with K never stored,
 the ports of the reference's fused Pallas matvecs. On a CUDA f32 tensor
 they are the CUDA C++ kernels in ``csrc/fused_matvec.cu``; on a CPU tensor
 both are :func:`fused_matvec_plain`. They are forward-only, as in the
-reference: the iterative engine never differentiates through them. The
-symmetric kernel builds each 64×64 tile of K once and multiplies it both
-ways on the tensor cores (three TF32 passes, ``csrc/tf32x3.cuh``); its
-wrapper hands it a buffer for V's split, padded copy and one scratch buffer
-whose layout :func:`sym_scratch_shape` states.
+reference: the iterative engine never differentiates through them. Both
+multiply K's tiles with V on the tensor cores (three TF32 passes,
+``csrc/tf32x3.cuh``) against V split once per call; each wrapper hands its
+kernel a buffer for that split, padded copy and a scratch buffer. The
+symmetric kernel builds each 64×64 tile of K once and uses it both ways
+(scratch layout: :func:`sym_scratch_shape`); the general one builds each
+128×64 tile once per column group of up to 144 columns and splits x2 into
+segments with one slot each (:func:`general_split`).
 
 ``RbfGram.launches``, ``FusedMatvec.launches`` and
 ``FusedMatvecSym.launches`` count kernel launches (CPU calls do not count),
@@ -43,6 +46,7 @@ __all__ = [
     "fused_matvec_plain",
     "fused_stationary_matvec",
     "fused_stationary_matvec_sym",
+    "general_split",
     "sym_band_split",
     "sym_matvec_fits",
     "sym_padded_cols",
@@ -206,6 +210,9 @@ SYM_TILE = 384  # band-grid block rows; csrc/fused_matvec.cu SYM_T
 SYM_SUBTILE = 64  # K tile edge; V's rows are padded to a multiple of it
 SYM_CHUNK = 72  # widest column chunk of the symmetric kernel (nine 8-column mma tiles)
 SYM_TARGET_CTAS = 396  # about three waves of one CTA per SM on 132 SMs
+GEN_ROWS = 128  # rows of x1 per CTA of the general kernel; csrc/fused_matvec.cu GEN_ROWS
+GEN_GROUP = 2  # column chunks (of up to 72 columns) per CTA of the general kernel
+GEN_TARGET_CTAS = 352  # 8/3 waves of one CTA per SM on 132 SMs
 
 # Rows of K the plain version forms at once: ~2^28 entries (1 GiB at f32).
 _PLAIN_ENTRIES = 1 << 28
@@ -245,6 +252,26 @@ def sym_padded_cols(r):
     return full * SYM_CHUNK + rem_cols
 
 
+def general_split(n, m, r):
+    """(s, n_pad, m_pad, r_pad) of the general kernel for K(x1, x2)·V with
+    x1 of n rows, x2 of m rows and V of r columns: x1's rows padded to 128
+    (a CTA's row block), x2's to 64 (a tile), V's columns to the chunk
+    widths (:func:`sym_padded_cols`); s is the number of x2 segments, the
+    least that makes row blocks × column groups (two chunks each) × s at
+    least 352 CTAs, never more than there are x2 tiles. At s > 1 the
+    scratch is s slots of (n_pad, r_pad) f32; V's split is 2·m_pad·r_pad
+    f32 either way. ``csrc/fused_matvec.cu``'s
+    ``fused_matvec_general_split`` is the same arithmetic."""
+    n, m = int(n), int(m)
+    n_pad = -(-n // GEN_ROWS) * GEN_ROWS
+    m_pad = -(-m // SYM_SUBTILE) * SYM_SUBTILE
+    rp = sym_padded_cols(r)
+    chunks = -(-rp // SYM_CHUNK)
+    groups = -(-chunks // GEN_GROUP)
+    ctas = (n_pad // GEN_ROWS) * groups
+    return min(m_pad // SYM_SUBTILE, -(-GEN_TARGET_CTAS // ctas)), n_pad, m_pad, rp
+
+
 def sym_band_split(n):
     """Band walkers per row block for an (n, n) self-Gram: with
     nb = ⌈n / 384⌉ row blocks the band grid has nb // 2 + 1 bands, CTA (I, s)
@@ -278,8 +305,10 @@ def sym_matvec_fits(n, r):
 def _fused_lib():
     lib = load_library("fused_matvec")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.fused_matvec_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i32, i32, ptr]
+    lib.fused_matvec_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i32, i32, i32, ptr]
     lib.fused_matvec_f32.restype = i32
+    lib.fused_matvec_general_split.argtypes = [i64, i64, i64, ctypes.POINTER(i64)]
+    lib.fused_matvec_general_split.restype = None
     lib.fused_matvec_sym_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i32, i32, i32, ptr]
     lib.fused_matvec_sym_f32.restype = i32
     lib.fused_matvec_sym_tile.argtypes = []
@@ -293,6 +322,12 @@ def _fused_lib():
     for r in (1, 8, 9, 33, 64, 65, 72, 73, 513):
         if lib.fused_matvec_sym_padded_cols(r) != sym_padded_cols(r):
             raise RuntimeError("csrc/fused_matvec.cu's column chunks disagree with hopper_kernels.sym_padded_cols")
+    for n, m, r in ((1, 1, 1), (23, 300, 65), (300, 23, 513), (10_000, 50_000, 513), (50_000, 50_000, 65),
+                    (10_000, 50_000, 1), (100_000, 100_000, 65)):
+        c_split = (i64 * 4)()
+        lib.fused_matvec_general_split(n, m, r, c_split)
+        if tuple(c_split) != general_split(n, m, r):
+            raise RuntimeError("csrc/fused_matvec.cu's general split disagrees with hopper_kernels.general_split")
     return lib
 
 
@@ -328,6 +363,10 @@ class FusedMatvecSym:
 
 
 def _launch_fused_matvec(x1, x2, v, ls, kernel):
+    """Run the general kernel: V split once (2·m_pad·r_pad f32), then the
+    matvec over every 128-row block, column group and x2 segment, and at
+    s > 1 the ordered sum of the segments' slots (s·n_pad·r_pad f32), all
+    sized by :func:`general_split`. Raises on anything it does not take."""
     _check_fused("fused_stationary_matvec", [("x1", x1), ("x2", x2), ("v", v), ("ls", ls)])
     if x1.dim() != 2 or x2.dim() != 2 or v.dim() != 2 or x1.shape[1] != x2.shape[1] or v.shape[0] != x2.shape[0]:
         raise ValueError(
@@ -341,12 +380,15 @@ def _launch_fused_matvec(x1, x2, v, ls, kernel):
         return out
     if m == 0 or d == 0:
         raise ValueError("fused_stationary_matvec kernel needs m >= 1 and d >= 1")
+    s, n_pad, m_pad, rp = general_split(n, m, r)
+    vsplit = torch.empty((2, m_pad, rp), dtype=torch.float32, device=x1.device)  # V's TF32 hi and lo, padded
+    slots = torch.empty((s if s > 1 else 0, n_pad, rp), dtype=torch.float32, device=x1.device)
     a, b, vc = _scaled(x1, ls), _scaled(x2, ls), v.contiguous()
     lib = _fused_lib()
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fused_matvec_f32(a.data_ptr(), b.data_ptr(), vc.data_ptr(), out.data_ptr(),
-                                   n, m, r, d, _KIND[kernel], stream)
+        err = lib.fused_matvec_f32(a.data_ptr(), b.data_ptr(), vc.data_ptr(), vsplit.data_ptr(), slots.data_ptr(),
+                                   out.data_ptr(), n, m, r, d, _KIND[kernel], s, stream)
     if err != 0:
         raise RuntimeError(f"fused_stationary_matvec kernel launch failed with CUDA error {err}")
     FusedMatvec.launches += 1
@@ -411,7 +453,11 @@ def sym_product_check(t, v, trans=False):
 
 def fused_stationary_matvec(x1, x2, v, ls, kernel="ExpQuad"):
     """K(x1, x2) @ v, unit amplitude: the CUDA kernel for CUDA tensors
-    (f32 only; anything else raises), :func:`fused_matvec_plain` on the CPU."""
+    (f32 only; anything else raises), :func:`fused_matvec_plain` on the CPU.
+    On the card each 128×64 tile of K is built once per column group (up to
+    144 columns of v) and multiplied as three TF32 passes on the tensor
+    cores; x2 is split into :func:`general_split`'s segments, summed in a
+    fixed order, so two calls on the same inputs agree bitwise."""
     if kernel not in FUSABLE_KERNELS:
         raise ValueError(f"fused_stationary_matvec: kernel {kernel!r} is not one of {FUSABLE_KERNELS}")
     if x1.device.type == "cpu":

@@ -173,3 +173,108 @@ def test_sym_scratch_shape_small_and_ragged(n):
     assert slots == n_split + nb // 2
     assert 1 <= n_split <= nb // 2 + 1
     assert n <= n_pad < n + hk.SYM_SUBTILE and rp == 8
+
+
+# ------------------------------------------------------------------
+# The general kernel's split and summation order (csrc/fused_matvec.cu
+# fused_matvec_gen_kernel), rehearsed on the CPU
+# ------------------------------------------------------------------
+
+FUSED_TOL = 1e-5  # chip_smoke.py's bound on |kernel − f64| in units of |K|·|V|
+ULP32 = 2.0**-23
+
+
+@pytest.mark.parametrize("r", [1, 65, 513])
+@pytest.mark.parametrize("m", [1, 23, 300, 10_000, 50_000, 100_000])
+@pytest.mark.parametrize("n", [1, 23, 300, 10_000, 50_000, 100_000])
+def test_general_split(n, m, r):
+    """Rows padded to the 128-row block, x2 to the 64-row tile, V's columns
+    to the chunk widths; s the least number of x2 segments that makes at
+    least 352 CTAs, never more than there are x2 tiles; the scratch (V's
+    split, and s slots at s > 1) stays small."""
+    s, n_pad, m_pad, rp = hk.general_split(n, m, r)
+    assert n_pad % hk.GEN_ROWS == 0 and n <= n_pad < n + hk.GEN_ROWS
+    assert m_pad % hk.SYM_SUBTILE == 0 and m <= m_pad < m + hk.SYM_SUBTILE
+    assert rp == hk.sym_padded_cols(r)
+    chunks = -(-rp // hk.SYM_CHUNK)
+    groups = -(-chunks // hk.GEN_GROUP)
+    assert groups == {1: 1, 65: 1, 513: 4}[r]
+    ctas = n_pad // hk.GEN_ROWS * groups
+    tiles = m_pad // hk.SYM_SUBTILE
+    assert 1 <= s <= tiles
+    assert ctas * s >= hk.GEN_TARGET_CTAS or s == tiles
+    assert s == 1 or ctas * (s - 1) < hk.GEN_TARGET_CTAS
+    slot_bytes = (s * n_pad * rp * 4) if s > 1 else 0
+    assert slot_bytes <= 2 * hk.GEN_TARGET_CTAS * hk.GEN_ROWS * hk.GEN_GROUP * hk.SYM_CHUNK * 4  # < 52 MB
+    assert 2 * m_pad * rp * 4 <= 2 * 100_032 * 520 * 4  # V's split: 416 MB at the largest shape here
+
+
+@pytest.mark.parametrize("n, m, r, split", [
+    (10_000, 50_000, 513, (2, 10_112, 50_048, 520)),  # the grid predict against [α | W]
+    (50_000, 50_000, 65, (1, 50_048, 50_048, 72)),  # a PCG sweep past the symmetric gate
+    (10_000, 50_000, 1, (5, 10_112, 50_048, 8)),  # iter_predict_mean
+    (100_000, 100_000, 65, (1, 100_096, 100_032, 72)),
+])
+def test_general_split_at_the_main_path_shapes(n, m, r, split):
+    assert hk.general_split(n, m, r) == split
+
+
+def _gram_f32(x1, x2, ls, kernel):
+    """K as the kernel builds it: exact f32 distances in coordinate order."""
+    from gumbi_tpu_torch.ops.kernels import _stationary
+
+    a, b = torch.as_tensor(x1) / torch.as_tensor(ls), torch.as_tensor(x2) / torch.as_tensor(ls)
+    sq = torch.zeros((a.shape[0], b.shape[0]))
+    for k in range(a.shape[1]):
+        diff = a[:, k : k + 1] - b[:, k : k + 1].T
+        sq = sq + diff * diff
+    return _stationary(kernel, sq)
+
+
+def _emulate_general(x1, x2, v, ls, kernel):
+    """The general kernel's arithmetic in plain torch: per x2 segment of
+    general_split, per 64-row x2 tile, each 8-deep step's 3xTF32 product
+    summed from zero, the tile's steps summed apart, the tile's partial
+    added to the segment's running sum; then the segments' slots in order."""
+    from gumbi_tpu_torch.ops.tf32x3 import matmul_3xtf32_plain
+
+    n, m, r = x1.shape[0], x2.shape[0], v.shape[1]
+    s, _, m_pad, _ = hk.general_split(n, m, r)
+    K = torch.zeros((n, m_pad))
+    K[:, :m] = _gram_f32(x1, x2, ls, kernel)
+    V = torch.zeros((m_pad, r))
+    V[:m] = torch.as_tensor(v)
+    tiles = m_pad // 64
+    out = torch.zeros((n, r))
+    for z in range(s):
+        acc = torch.zeros((n, r))
+        for t in range(z * tiles // s, (z + 1) * tiles // s):
+            part = torch.zeros((n, r))
+            for k0 in range(64 * t, 64 * t + 64, 8):
+                part = part + matmul_3xtf32_plain(K[:, k0 : k0 + 8].contiguous(), V[k0 : k0 + 8].contiguous())
+            acc = acc + part
+        out = out + acc
+    return out.numpy(), s
+
+
+@pytest.mark.parametrize("n, m, r", [(150, 300, 5), (37, 23, 73)], ids=["s5", "s1-two-chunks"])
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_general_summation_order_holds_the_2x_rule(n, m, r, kernel, d):
+    """The accuracy argument for the card: the kernel's summation order
+    (per-step 3xTF32 partials from zero, the per-tile two-level sum, the s
+    slots in a fixed order) against the reference's Pallas kernel in
+    interpret mode and against f64: |emulation − f64| ≤ FUSED_TOL·(|K|·|V|)
+    and at most twice the plain f32 version's error (never under one f32
+    ulp), chip_smoke.py's rule for the kernel."""
+    x1, x2, v, ls = _inputs(n, m, d, r, seed=100 * d + n)
+    emu, s = _emulate_general(x1, x2, v, ls, kernel)
+    assert s == (5 if n == 150 else 1)
+    ref = np.asarray(ref_matvec(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(v), jnp.asarray(ls), kernel,
+                                interpret=True))
+    np.testing.assert_allclose(emu, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+    exact, scale = _oracle(x1, x2, v, ls, kernel)
+    e_emu = float((np.abs(emu - exact) / scale).max())
+    e_plain = float((np.abs(_plain(x1, x2, v, ls, kernel) - exact) / scale).max())
+    assert e_emu <= FUSED_TOL
+    assert e_emu <= 2.0 * max(e_plain, ULP32), (e_emu, e_plain)
