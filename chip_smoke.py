@@ -17,9 +17,18 @@ Phases (any failure raises and ends the run with a nonzero exit code):
    |product − f64| ≤ 2e-6·(|a|·|b|) and at least 16× better than one TF32
    pass.
 2. Hold the ``rbf_gram`` CUDA kernel against its plain torch version at
-   the slice's shapes and ragged ones, d ∈ {1, 2, 3}: max |ΔK|/η² ≤ 1e-5,
-   and the ls/η gradients through autograd. Time both at 5120² and
-   5120×10000.
+   the slice's shapes and ragged ones, d ∈ {1, 2, 3}, and at the other
+   paths' shapes (the pivoted Cholesky's (1, 50,000) row and a strip of 4,
+   ragged strips (1, 23) and (5, 10,001), the surrogate gradient's
+   (2,500, 50,000) block, the dense polish's 16,384²), d ∈ {1, 2, 3, 17}
+   and a shared lengthscale expanded to d entries: max |ΔK|/η² ≤ 1e-5,
+   two calls bit-equal, and (up to 10⁶ entries) the ls/η gradients
+   through autograd. Count with torch.profiler that each call runs exactly
+   one CUDA kernel. Time kernel and plain in turns at (1, 50,000),
+   (2,500, 50,000), 1,024², 5,120², 5,120×10,000 and 16,384²: CUDA events
+   over 100 launches, the median of 5 such runs, beside the profiler's
+   device time per kernel. Phases 3, 6 and 8 count its launches by output
+   shape on each path.
 3. Drive the slice that ``bench.py`` times: a 2-output LMC on 5,120 shared
    locations (10,240 points), 8 restarts fitted coarse (640 points, 20
    iterations) → mid (1,024 points, 12) → polish (all points, 20, ftol
@@ -108,6 +117,7 @@ Exits nonzero, printing no result, where CUDA is unavailable.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -160,7 +170,7 @@ from gumbi_tpu_torch.ops import (  # noqa: E402
     rbf_gram,
     rbf_gram_plain,
 )
-from gumbi_tpu_torch.ops import _build, hopper_chol  # noqa: E402
+from gumbi_tpu_torch.ops import _build, hopper_chol, hopper_kernels  # noqa: E402
 from gumbi_tpu_torch.ops.hopper_chol import _chol_lib  # noqa: E402
 from gumbi_tpu_torch.ops.hopper_kernels import (  # noqa: E402
     SYM_TILE,
@@ -316,46 +326,137 @@ def _time_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+# Shapes the three paths give rbf_gram beyond the slice's: the pivoted
+# Cholesky's rows (1, 50,000) and a strip of 4, ragged strips, the surrogate
+# gradient's (2,500, 50,000) blocks and the dense polish's 16,384².
+RBF_PATH_SHAPES = [(1, 50_000), (4, 50_000), (1, 23), (5, 10_001), (2_500, 50_000), (16_384, 16_384)]
+# Timed shapes: every path's (iterative row and block; Kronecker/dense coarse
+# 1,024²; Kronecker 5,120² and predict 5,120×10,000; dense polish 16,384²).
+RBF_TIMED_SHAPES = [(1, 50_000), (2_500, 50_000), (1024, 1024), (5120, 5120), (5120, 10_000), (16_384, 16_384)]
+RBF_REPS, RBF_RUNS = 100, 5  # CUDA events over 100 launches; median of 5 such runs
+RBF_SHAPES = {}  # path -> Counter of rbf_gram launches by output shape (phases 3, 6, 8)
+
+
+def _shape_key(n, m):
+    return f"{n}x{m}"
+
+
+@contextlib.contextmanager
+def count_rbf_shapes(path):
+    """Count the rbf_gram kernel's launches by output shape while the block
+    runs, into RBF_SHAPES[path], by wrapping the launcher that RbfGram calls."""
+    counts = RBF_SHAPES.setdefault(path, collections.Counter())
+    orig = hopper_kernels._launch_rbf_gram
+
+    def counted(x1, x2, ls, eta):
+        before = RbfGram.launches
+        out = orig(x1, x2, ls, eta)
+        counts[_shape_key(x1.shape[0], x2.shape[0])] += RbfGram.launches - before
+        return out
+
+    hopper_kernels._launch_rbf_gram = counted
+    try:
+        yield counts
+    finally:
+        hopper_kernels._launch_rbf_gram = orig
+
+
+def _rbf_check(n, m, d, ls_shared=False, grad=True):
+    """Hold one rbf_gram call against the plain version (max |ΔK|/η²), a
+    second call bit-equal to the first, and with ``grad`` the ls/η gradients
+    through the kernel's analytic backward against autograd through the
+    plain formula. ``ls_shared``: one lengthscale expanded to d entries
+    (stride 0), as ``kernels._term_cont`` passes a shared one."""
+    x1, x2, ls, eta = _inputs(n, m, d, seed=n + 7 * m + d)
+    if d > 3:  # keep K away from 0 over many coordinates
+        ls = ls * (d / 2) ** 0.5
+    if ls_shared:
+        ls = ls[:1]
+    ls_k, eta_k = ls.clone().requires_grad_(grad), eta.clone().requires_grad_(grad)
+    ls_p, eta_p = ls.clone().requires_grad_(grad), eta.clone().requires_grad_(grad)
+    K = rbf_gram(x1, x2, ls_k.expand(d) if ls_shared else ls_k, eta_k)
+    K2 = rbf_gram(x1, x2, ls_k.expand(d) if ls_shared else ls_k, eta_k)
+    torch.cuda.synchronize()
+    Kp = rbf_gram_plain(x1, x2, ls_p, eta_p)
+    torch.cuda.synchronize()
+    rel = float((K - Kp).detach().abs().max()) / float(eta) ** 2
+    same = bool(torch.equal(K, K2))
+    msg = f"[kernel] {n}x{m} d={d}{' shared ls' if ls_shared else ''}: max|dK|/eta2 {rel:.3e} | two calls " \
+          f"bit-equal {same}"
+    assert rel <= KERNEL_TOL, f"rbf_gram disagrees with plain at {n}x{m} d={d}: {rel}"
+    assert same, f"two rbf_gram calls differ at {n}x{m} d={d}"
+    if grad:
+        # a positive cotangent, drawn on the card
+        gbar = torch.rand(n, m, generator=torch.Generator("cuda").manual_seed(d), device="cuda")
+        gk = torch.autograd.grad((K * gbar).sum(), (ls_k, eta_k))
+        gp = torch.autograd.grad((Kp * gbar).sum(), (ls_p, eta_p))
+        torch.cuda.synchronize()
+        grel = max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max()) for a, b in zip(gk, gp))
+        msg += f" | grad(ls,eta) max rel {grel:.3e}"
+        assert grel <= GRAD_RTOL, f"rbf_gram gradient disagrees at {n}x{m} d={d}: {grel}"
+    log(msg)
+    return rel * float(eta) ** 2
+
+
+def _profile_kernels(fn, calls):
+    """Run ``fn`` ``calls`` times under torch.profiler; return every device
+    operation it recorded as (name, device µs) pairs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def phase2_kernel_vs_plain():
     shapes = [(640, 640), (1024, 1024), (5120, 5120), (5120, 10000), (37, 23)]
     max_abs = 0.0
     for n, m in shapes:
         for d in (1, 2, 3):
-            x1, x2, ls, eta = _inputs(n, m, d, seed=n + 7 * m + d)
-            ls_k, eta_k = ls.clone().requires_grad_(True), eta.clone().requires_grad_(True)
-            ls_p, eta_p = ls.clone().requires_grad_(True), eta.clone().requires_grad_(True)
-            K = rbf_gram(x1, x2, ls_k, eta_k)
-            torch.cuda.synchronize()
-            Kp = rbf_gram_plain(x1, x2, ls_p, eta_p)
-            torch.cuda.synchronize()
-            err = float((K - Kp).detach().abs().max())
-            rel = err / float(eta) ** 2
-            max_abs = max(max_abs, err)
-            # gradients: the kernel route's analytic backward vs autograd
-            # through the plain formula, with a positive cotangent
-            gbar = torch.rand(n, m, generator=torch.Generator().manual_seed(d)).cuda()
-            gk = torch.autograd.grad((K * gbar).sum(), (ls_k, eta_k))
-            gp = torch.autograd.grad((Kp * gbar).sum(), (ls_p, eta_p))
-            torch.cuda.synchronize()
-            grel = max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max()) for a, b in zip(gk, gp))
-            log(f"[kernel] {n}x{m} d={d}: max|dK|/eta2 {rel:.3e}  grad(ls,eta) max rel {grel:.3e}")
-            assert rel <= KERNEL_TOL, f"rbf_gram disagrees with plain at {n}x{m} d={d}: {rel}"
-            assert grel <= GRAD_RTOL, f"rbf_gram gradient disagrees at {n}x{m} d={d}: {grel}"
+            max_abs = max(max_abs, _rbf_check(n, m, d))
+    for n, m in RBF_PATH_SHAPES:
+        small = n * m <= 1_000_000
+        for d in (1, 2, 3, 17):
+            max_abs = max(max_abs, _rbf_check(n, m, d, grad=small))
+        max_abs = max(max_abs, _rbf_check(n, m, 2, ls_shared=True, grad=small))
+
+    # exactly one CUDA kernel per call (torch.profiler on the card), the
+    # autograd route and a shared (expanded) lengthscale included
+    for n, m, shared in ((1, 50_000, True), (5120, 10_000, False), (37, 23, False)):
+        x1, x2, ls, eta = _inputs(n, m, 2, seed=1)
+        ls = ls[:1].expand(2) if shared else ls.requires_grad_(True)
+        kernels = _profile_kernels(lambda: rbf_gram(x1, x2, ls, eta), 10)
+        names = sorted({k for k, _ in kernels})
+        log(f"[kernel] profiler, 10 calls at {n}x{m}{' shared ls' if shared else ' ls requiring grad'}: "
+            f"{len(kernels)} CUDA kernels {names}")
+        assert len(kernels) == 10 and all("rbf_gram_kernel" in k for k, _ in kernels), \
+            f"rbf_gram at {n}x{m} did not run exactly one kernel per call: {kernels}"
 
     times = {}
     with torch.no_grad():
-        for n, m in [(5120, 5120), (5120, 10000)]:
+        for n, m in RBF_TIMED_SHAPES:
             x1, x2, ls, eta = _inputs(n, m, 2, seed=0)
-            # plain, kernel, kernel, plain: each reported time is the mean of its two turns
-            p1 = _time_ms(lambda: rbf_gram_plain(x1, x2, ls, eta))
-            k1 = _time_ms(lambda: rbf_gram(x1, x2, ls, eta))
-            k2 = _time_ms(lambda: rbf_gram(x1, x2, ls, eta))
-            p2 = _time_ms(lambda: rbf_gram_plain(x1, x2, ls, eta))
-            k, p = (k1 + k2) / 2, (p1 + p2) / 2
-            gbs = 4 * n * m / (k * 1e-3) / 1e9
-            log(f"[kernel] time {n}x{m} d=2: kernel {k:.4f} ms ({k1:.4f}, {k2:.4f}; {gbs:.0f} GB/s "
-                f"of output) | plain {p:.4f} ms ({p1:.4f}, {p2:.4f})")
-            times[(n, m)] = (k, p)
+            kern = lambda: rbf_gram(x1, x2, ls, eta)  # noqa: E731
+            plain = lambda: rbf_gram_plain(x1, x2, ls, eta)  # noqa: E731
+            runs_k, runs_p = [], []
+            for _ in range(RBF_RUNS):  # plain and kernel in turns
+                runs_p.append(_time_ms(plain, RBF_REPS))
+                runs_k.append(_time_ms(kern, RBF_REPS))
+            k, p = float(np.median(runs_k)), float(np.median(runs_p))
+            prof = _profile_kernels(kern, 20)
+            assert len(prof) == 20, f"rbf_gram at {n}x{m}: {len(prof)} kernels in 20 calls"
+            dev = float(np.median([us for _, us in prof])) / 1e3
+            bound, by = _rbf_bound(n, m, 2)
+            assert min(k, dev) >= bound, f"rbf_gram at {n}x{m}: {k} / {dev} ms is under its bound {bound} ms"
+            log(f"[kernel] time {n}x{m} d=2: kernel {k:.4f} ms (median of {RBF_RUNS} runs of {RBF_REPS}: "
+                f"{', '.join(f'{t:.4f}' for t in runs_k)}; {4 * n * m / (k * 1e-3) / 1e9:.0f} GB/s of output) | "
+                f"device time per kernel (profiler, median of 20) {dev:.4f} ms | bound {bound:.4f} ms ({by}), "
+                f"{bound / k:.1%} of it | plain {p:.4f} ms ({', '.join(f'{t:.4f}' for t in runs_p)})")
+            times[(n, m)] = (k, p, dev)
     return max_abs, times
 
 
@@ -447,7 +548,8 @@ def phase3_slice():
     # The first pass pays one-time costs (solver setup at each size); the
     # second, warm pass is the one checked and counted.
     _log_phases("phases, first pass", run_slice("cuda", torch.float32))
-    r = run_slice("cuda", torch.float32)
+    with count_rbf_shapes("kronecker") as shapes:
+        r = run_slice("cuda", torch.float32)
     _log_phases("phases, warm pass", r)
     mean, var = r["mean"], r["var"]
     n_grid = GRID * GRID
@@ -471,7 +573,9 @@ def phase3_slice():
     per_pt = abs(f32 - f64) / n_points
     dmean = float((mean.double() - mean64).abs().max())
     dvar = float((var.double() - var64).abs().max())
-    log(f"[slice] kernel launches: fit {launches['fit']} | predict {launches['predict']}")
+    log(f"[slice] kernel launches: fit {launches['fit']} | predict {launches['predict']} | rbf_gram by shape "
+        f"{dict(shapes)}")
+    assert sum(shapes.values()) == launches["total"], f"shape counts {dict(shapes)} against {launches}"
     log(f"[slice] neg_logp at fit: f32 {f32:.4f} | f64 {f64:.4f} | |diff| {per_pt:.2e} nats/pt "
         f"(tol {BASIN_TOL}) | grid vs f64: max|dmean| {dmean:.3e} max|dvar| {dvar:.3e} | "
         f"mean range [{float(mean.min()):.3f}, {float(mean.max()):.3f}]")
@@ -935,10 +1039,11 @@ def phase6_iterative():
     time_pivoted_cholesky()
     for k in (RbfGram, FusedMatvec, FusedMatvecSym):
         k.launches = 0
-    bench = bench_point_value_and_grad()
-    cgpt = bench_point_value_and_grad(ls=CG_LS)
-    after_objective = _counts()
-    r = run_iter_campaign("cuda", torch.float32)
+    with count_rbf_shapes("iterative") as shapes:
+        bench = bench_point_value_and_grad()
+        cgpt = bench_point_value_and_grad(ls=CG_LS)
+        after_objective = _counts()
+        r = run_iter_campaign("cuda", torch.float32)
     launches = _counts()
     # the CG point again with every sweep through the general kernel
     # (IterConfig(sym_matvec=False), the route past the symmetric gate)
@@ -955,7 +1060,9 @@ def phase6_iterative():
         f"{cgpt['iters']}) | rel_res {cg_gen['rel_res']:.3e} | value+grad {cg_gen['wall_s']:.3f} s (symmetric "
         f"{cgpt['wall_s']:.3f} s) | launches {gen_launches}")
     _log_campaign("single pass", r)
-    log(f"[iter] main path launches (two value+grads + the campaign, run once): {launches}")
+    log(f"[iter] main path launches (two value+grads + the campaign, run once): {launches} | rbf_gram by shape "
+        f"{dict(shapes)}")
+    assert sum(shapes.values()) == launches["rbf_gram"], f"shape counts {dict(shapes)} against {launches}"
     for b in (bench, cgpt):
         assert np.isfinite(b["value"]), f"iterative objective at ls={b['ls']} is not finite"
         assert b["exhausted"] or b["rel_res"] <= 10 * ITER_TOL, f"solve at ls={b['ls']} not trusted: {b}"
@@ -1264,10 +1371,12 @@ def phase8_dense(breakdown=False):
     _log_dense("library factor", stock)
     RbfGram.launches = 0
     BlockedChol.launches = 0
-    hand = run_dense_campaign("cuda", torch.float32, chol=hopper_chol.seam_cholesky)
+    with count_rbf_shapes("dense") as shapes:
+        hand = run_dense_campaign("cuda", torch.float32, chol=hopper_chol.seam_cholesky)
     launches = {"rbf_gram": RbfGram.launches, "blocked_cholesky": BlockedChol.launches}
     _log_dense("hand factor", hand)
-    log(f"[dense] main path launches (hand-factor campaign): {launches}")
+    log(f"[dense] main path launches (hand-factor campaign): {launches} | rbf_gram by shape {dict(shapes)}")
+    assert sum(shapes.values()) == launches["rbf_gram"], f"shape counts {dict(shapes)} against {launches}"
     assert linalg.safe_cholesky.__module__ == linalg.__name__, "the seam was not restored"
     for name, c in launches.items():
         assert c > 0, f"{name} was launched no time on the dense path"
@@ -1421,7 +1530,7 @@ def main():
         f"(bounds use the data sheet's {FP32_PEAK / 1e12:.0f})")
     log(f"[smoke] all phases took {time.perf_counter() - t_start:.1f} s")
 
-    k_ms, p_ms = rbf_times[(5120, 10000)]
+    k_ms, p_ms, _ = rbf_times[(5120, 10000)]
     rb, rby = _rbf_bound(5120, 10000, 2)
     sk, sp, sb, sby, sb32 = fused_times[("sym", 50_000, 50_000, 65)]
     gk, gp, gb, gby, gb32 = fused_times[("general", 10_000, 50_000, 513)]
@@ -1432,9 +1541,14 @@ def main():
          "launches": kron_launches["total"] + iter_launches["rbf_gram"] + dense_launches["rbf_gram"],
          "launches_by_path": {"kronecker": kron_launches["total"], "iterative": iter_launches["rbf_gram"],
                               "dense": dense_launches["rbf_gram"]},
+         "launches_by_path_and_shape": {path: dict(c) for path, c in RBF_SHAPES.items()},
          "max_abs_err": rbf_max_abs, "ms": k_ms, "plain_ms": p_ms, "bound_ms": rb, "bound_fp32_ms": rb,
          "bound_by": rby,
-         "library_ms": None, "shape": "5120x10000 d=2"},
+         "library_ms": None, "shape": "5120x10000 d=2",
+         "ms_by_shape": {_shape_key(n, m): t[0] for (n, m), t in rbf_times.items()},
+         "device_ms_by_shape": {_shape_key(n, m): t[2] for (n, m), t in rbf_times.items()},
+         "plain_ms_by_shape": {_shape_key(n, m): t[1] for (n, m), t in rbf_times.items()},
+         "bound_ms_by_shape": {_shape_key(n, m): _rbf_bound(n, m, 2)[0] for (n, m) in rbf_times}},
         {"name": "fused_stationary_matvec", "route": "cuda", "source": "gumbi_tpu_torch/csrc/fused_matvec.cu",
          "replaces": "gumbi_tpu/ops/pallas_kernels.py:309",
          "launches": iter_launches["fused_stationary_matvec"], "max_abs_err": fused_errs["general"],

@@ -3,10 +3,12 @@
 ``rbf_gram``: the fused RBF Gram K = η²·exp(−½‖(x1ᵢ−x2ⱼ)/ls‖²), the port of
 ``gumbi_tpu/ops/pallas_kernels.py`` ``rbf_gram``. The forward on a CUDA
 tensor is the CUDA C++ kernel in ``csrc/rbf_gram.cu`` (built by nvcc for
-``sm_90a`` at first use, see :mod:`._build`); on a CPU tensor it is
-:func:`rbf_gram_plain`, the same exact elementwise formula in torch. The
-backward is the reference's ``_rbf_gram_bwd``: torch ops on the saved K,
-so it runs on both devices and is tested on the CPU.
+``sm_90a`` at first use, see :mod:`._build`): one launch per call, which
+divides by ls and squares η itself, over a persistent grid whose tiling
+:func:`rbf_tile_config` gives (a row strip for n ≤ 8). On a CPU tensor it
+is :func:`rbf_gram_plain`, the same exact elementwise formula in torch.
+The backward is the reference's ``_rbf_gram_bwd``: torch ops on the saved
+K, so it runs on both devices and is tested on the CPU.
 
 ``fused_stationary_matvec`` / ``fused_stationary_matvec_sym``: K(x1, x2)·V
 and K(x, x)·V for a unit-amplitude stationary kernel with K never stored,
@@ -40,6 +42,7 @@ __all__ = [
     "RbfGram",
     "rbf_gram",
     "rbf_gram_plain",
+    "rbf_tile_config",
     "FUSABLE_KERNELS",
     "FusedMatvec",
     "FusedMatvecSym",
@@ -73,26 +76,57 @@ def rbf_gram_plain(x1, x2, ls, eta):
     return eta**2 * torch.exp(-0.5 * sq)
 
 
+# csrc/rbf_gram.cu's launch configuration: 32×256 tiles, or for n ≤ 8 rows a
+# strip of n×1024 tiles, over at most 264 CTAs (two per SM on 132 SMs).
+RBF_TILE = (32, 256)
+RBF_STRIP_MAX_ROWS = 8
+RBF_STRIP_COLS = 1024
+RBF_TARGET_CTAS = 264
+
+
+def rbf_tile_config(n, m, d):
+    """(strip, tile_rows, tile_cols, tiles, ctas) of the ``rbf_gram`` kernel
+    for an (n, m) output over d coordinates; all zero when n, m or d is
+    below 1. Tiles of ``tile_rows`` × ``tile_cols`` cover K in row-major
+    tile order (the last row and column tiles ragged), and CTA c of
+    ``ctas`` walks tiles ``tiles·c // ctas`` to ``tiles·(c+1) // ctas − 1``.
+    n ≤ 8 takes the row strip (``strip`` 1): one tile of all n rows and
+    1,024 columns. ``csrc/rbf_gram.cu``'s ``rbf_gram_config`` is the same
+    arithmetic; d does not change the tiling."""
+    n, m, d = int(n), int(m), int(d)
+    if n < 1 or m < 1 or d < 1:
+        return (0, 0, 0, 0, 0)
+    strip = n <= RBF_STRIP_MAX_ROWS
+    rows, cols = (n, RBF_STRIP_COLS) if strip else RBF_TILE
+    tiles = -(-n // rows) * -(-m // cols)
+    return (int(strip), rows, cols, tiles, min(tiles, RBF_TARGET_CTAS))
+
+
 @functools.lru_cache(maxsize=None)
 def _rbf_lib():
     lib = load_library("rbf_gram")
-    fn = lib.rbf_gram_f32
-    fn.argtypes = [
-        ctypes.c_void_p,  # a
-        ctypes.c_void_p,  # b
-        ctypes.c_void_p,  # eta2 (device scalar)
-        ctypes.c_void_p,  # out
-        ctypes.c_longlong,  # n
-        ctypes.c_longlong,  # m
-        ctypes.c_int,  # d
-        ctypes.c_void_p,  # cudaStream_t
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    # x1, x2, ls, ls_stride, eta, out, n, m, d, stream
+    lib.rbf_gram_f32.argtypes = [ptr, ptr, ptr, i64, ptr, ptr, i64, i64, i32, ptr]
+    lib.rbf_gram_f32.restype = i32
+    lib.rbf_gram_config.argtypes = [i64, i64, i32, ctypes.POINTER(i64)]
+    lib.rbf_gram_config.restype = None
+    for n, m, d in ((0, 5, 2), (1, 1, 1), (1, 50_000, 2), (8, 1025, 3), (9, 23, 17), (37, 23, 1),
+                    (2_500, 50_000, 2), (5_120, 10_000, 2), (16_384, 16_384, 2), (100_000, 100_000, 40)):
+        c_cfg = (i64 * 5)()
+        lib.rbf_gram_config(n, m, d, c_cfg)
+        if tuple(c_cfg) != rbf_tile_config(n, m, d):
+            raise RuntimeError("csrc/rbf_gram.cu's launch configuration disagrees with hopper_kernels.rbf_tile_config")
+    return lib.rbf_gram_f32
 
 
 def _launch_rbf_gram(x1, x2, ls, eta):
-    """Run the CUDA kernel; raise on anything it does not take."""
+    """Run the CUDA kernel (one launch, no other device op); raise on
+    anything it does not take."""
+    if x1.dim() != 2 or x2.dim() != 2 or x1.shape[1] != x2.shape[1]:
+        raise ValueError(f"rbf_gram: x1 {tuple(x1.shape)} and x2 {tuple(x2.shape)} must be (n,d), (m,d)")
+    if not (x1.is_contiguous() and x2.is_contiguous()):
+        raise ValueError("rbf_gram kernel takes contiguous x1 and x2")
     for name, t in (("x1", x1), ("x2", x2), ("ls", ls), ("eta", eta)):
         if t.device.type != "cuda" or t.dtype != torch.float32:
             raise TypeError(
@@ -101,10 +135,6 @@ def _launch_rbf_gram(x1, x2, ls, eta):
             )
         if t.device != x1.device:
             raise ValueError(f"rbf_gram: {name} is on {t.device}, x1 on {x1.device}")
-    if x1.dim() != 2 or x2.dim() != 2 or x1.shape[1] != x2.shape[1]:
-        raise ValueError(f"rbf_gram: x1 {tuple(x1.shape)} and x2 {tuple(x2.shape)} must be (n,d), (m,d)")
-    if not (x1.is_contiguous() and x2.is_contiguous()):
-        raise ValueError("rbf_gram kernel takes contiguous x1 and x2")
     n, d = x1.shape
     m = x2.shape[0]
     if ls.numel() not in (1, d) or eta.numel() != 1:
@@ -112,14 +142,13 @@ def _launch_rbf_gram(x1, x2, ls, eta):
     out = torch.empty((n, m), dtype=torch.float32, device=x1.device)
     if n == 0 or m == 0:
         return out
-    ls_b = ls.reshape(-1).expand(d)
-    a = (x1 / ls_b).contiguous()
-    b = (x2 / ls_b).contiguous()
-    eta2 = (eta.reshape(1) ** 2).contiguous()
+    ls_v = ls.reshape(-1)  # a view: ls is 1-D, or one entry, on every path
+    ls_stride = ls_v.stride(0) if ls_v.numel() > 1 else 0  # 0 for a shared or expanded lengthscale
     fn = _rbf_lib()
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(a.data_ptr(), b.data_ptr(), eta2.data_ptr(), out.data_ptr(), n, m, d, stream)
+        err = fn(x1.data_ptr(), x2.data_ptr(), ls_v.data_ptr(), ls_stride, eta.data_ptr(), out.data_ptr(),
+                 n, m, d, stream)
     if err != 0:
         raise RuntimeError(f"rbf_gram kernel launch failed with CUDA error {err}")
     RbfGram.launches += 1

@@ -16,7 +16,7 @@ import jax.numpy as jnp
 import gumbi_tpu.ops.kernels as jk
 import gumbi_tpu_torch.ops.kernels as tk
 from gumbi_tpu_torch.convert import params_from_numpy, spec_from_reference
-from gumbi_tpu_torch.ops.hopper_kernels import RbfGram, _launch_rbf_gram, rbf_gram, rbf_gram_plain
+from gumbi_tpu_torch.ops.hopper_kernels import RbfGram, _launch_rbf_gram, rbf_gram, rbf_gram_plain, rbf_tile_config
 
 torch.set_num_threads(2)  # the suite runs several workers at once
 
@@ -148,30 +148,60 @@ def _rbf_inputs(seed, n, m, d, n_ls):
     x1 = rng.normal(size=(n, d)).astype(np.float32)
     x2 = rng.normal(size=(m, d)).astype(np.float32)
     ls = rng.uniform(0.6, 1.3, n_ls).astype(np.float32)
+    if d > 3:  # keep K away from 0 over many coordinates
+        ls = ls * np.float32(np.sqrt(d / 2))
     eta = np.float32(rng.uniform(0.8, 1.5))
     return x1, x2, ls, eta
 
 
+# (n, m, d, n_ls): the first four are the original cases at 37×23; then the
+# kernel's row strip (n ≤ 8) at ragged m, and d = 17, which takes three of
+# the kernel's 8-coordinate staging passes, with ARD and shared lengthscales.
+_RBF_CASES = [
+    pytest.param(37, 23, 1, 1, id="1-1"),
+    pytest.param(37, 23, 2, 2, id="2-2"),
+    pytest.param(37, 23, 3, 3, id="3-3"),
+    pytest.param(37, 23, 3, 1, id="3-1"),
+    pytest.param(1, 300, 2, 2, id="1x300-2-2"),
+    pytest.param(1, 300, 2, 1, id="1x300-2-1"),
+    pytest.param(3, 257, 3, 3, id="3x257-3-3"),
+    pytest.param(3, 257, 3, 1, id="3x257-3-1"),
+    pytest.param(5, 1001, 2, 2, id="5x1001-2-2"),
+    pytest.param(5, 1001, 1, 1, id="5x1001-1-1"),
+    pytest.param(37, 23, 17, 17, id="37x23-17-17"),
+    pytest.param(37, 23, 17, 1, id="37x23-17-1"),
+]
+
+
 @pytest.mark.parametrize("fn", [rbf_gram_plain, rbf_gram], ids=["plain", "RbfGram"])
-@pytest.mark.parametrize("d,n_ls", [(1, 1), (2, 2), (3, 3), (3, 1)])
-def test_rbf_gram_forward_matches_pallas(interpreted_rbf, fn, d, n_ls):
+@pytest.mark.parametrize("n,m,d,n_ls", _RBF_CASES)
+def test_rbf_gram_forward_matches_pallas(interpreted_rbf, fn, n, m, d, n_ls):
     """Forward at f32: atol 1e-6·η² (exact elementwise distances on both
     sides; only exp's last-ulp rounding may differ)."""
-    x1, x2, ls, eta = _rbf_inputs(d, 37, 23, d, n_ls)
+    x1, x2, ls, eta = _rbf_inputs(d if (n, m) == (37, 23) and d <= 3 else n + m + d, n, m, d, n_ls)
     K_j = np.asarray(interpreted_rbf(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(ls), jnp.asarray(eta)))
     before = RbfGram.launches
     K_t = fn(torch.as_tensor(x1), torch.as_tensor(x2), torch.as_tensor(ls), torch.tensor(eta))
     assert RbfGram.launches == before  # CPU tensors never launch the kernel
-    assert K_t.dtype == torch.float32 and K_t.shape == (37, 23)
+    assert K_t.dtype == torch.float32 and K_t.shape == (n, m)
     np.testing.assert_allclose(K_t.numpy(), K_j, rtol=0, atol=1e-6 * float(eta) ** 2)
 
 
-@pytest.mark.parametrize("n_ls", [2, 1], ids=["ard", "shared"])
-def test_rbf_gram_vjp_matches_pallas(interpreted_rbf, n_ls):
+@pytest.mark.parametrize(
+    "n,m,d,n_ls",
+    [
+        pytest.param(12, 9, 2, 2, id="ard"),
+        pytest.param(12, 9, 2, 1, id="shared"),
+        pytest.param(1, 300, 2, 2, id="1x300-ard"),
+        pytest.param(3, 257, 3, 1, id="3x257-shared"),
+        pytest.param(37, 23, 17, 17, id="37x23-d17-ard"),
+    ],
+)
+def test_rbf_gram_vjp_matches_pallas(interpreted_rbf, n, m, d, n_ls):
     """The wrapper's analytic backward vs the reference custom VJP, f32,
     rtol/atol 2e-4 as tests/test_pallas.py holds the reference itself."""
-    x1, x2, ls, eta = _rbf_inputs(10 + n_ls, 12, 9, 2, n_ls)
-    gbar = np.random.default_rng(5).normal(size=(12, 9)).astype(np.float32)
+    x1, x2, ls, eta = _rbf_inputs(10 + n_ls if (n, m) == (12, 9) else n + m + d, n, m, d, n_ls)
+    gbar = np.random.default_rng(5).normal(size=(n, m)).astype(np.float32)
 
     def loss_j(a, b, l, e):
         return jnp.sum(interpreted_rbf(a, b, l, e) * gbar)
@@ -205,6 +235,68 @@ def test_kernel_launch_refuses_non_cuda_tensors():
     x = torch.zeros(4, 2)
     with pytest.raises(TypeError, match="CUDA float32"):
         _launch_rbf_gram(x, x, torch.ones(2), torch.tensor(1.0))
+
+
+@pytest.mark.parametrize(
+    "x1,err,match",
+    [
+        pytest.param(torch.zeros(4, 2, dtype=torch.float64), TypeError, "CUDA float32.*float64", id="f64"),
+        pytest.param(torch.zeros(2, 4).T, ValueError, "contiguous", id="non-contiguous"),
+        pytest.param(torch.zeros(4, 3), ValueError, "must be", id="d-mismatch"),
+    ],
+)
+def test_kernel_launch_refuses_what_it_does_not_take(x1, err, match):
+    """f64, non-contiguous or mismatched input raises; nothing is launched."""
+    before = RbfGram.launches
+    with pytest.raises(err, match=match):
+        _launch_rbf_gram(x1, torch.zeros(5, 2), torch.ones(2), torch.tensor(1.0))
+    assert RbfGram.launches == before
+
+
+# Output shapes of the kernel: chip_smoke's checks and the three paths'
+# calls (Kronecker 640², 1,024², 5,120², 5,120×10,000; iterative pivoted
+# Cholesky rows (1, 50,000), gradient blocks (2,500, 50,000), coarse 2,048²,
+# grid 10,000×50,000; dense 1,024², 16,384², grid 10,000×16,384 and draws
+# 1,024×16,384), plus edges of the strip and the tiles.
+_TILED_SHAPES = [
+    (1, 1, 1), (1, 23, 2), (1, 300, 2), (3, 257, 3), (5, 1001, 2), (5, 10_001, 3), (4, 50_000, 2),
+    (1, 50_000, 2), (8, 1025, 1), (9, 23, 17), (37, 23, 1), (640, 640, 2), (1024, 1024, 2), (2048, 2048, 2),
+    (5120, 5120, 2), (5120, 10_000, 2), (10_000, 5120, 2), (2500, 50_000, 2), (10_000, 50_000, 2),
+    (16_384, 16_384, 2), (10_000, 16_384, 2), (1024, 16_384, 2),
+]
+
+
+@pytest.mark.parametrize("n,m,d", _TILED_SHAPES, ids=[f"{n}x{m}-d{d}" for n, m, d in _TILED_SHAPES])
+def test_rbf_tile_config_covers_every_entry_once(n, m, d):
+    """The kernel's tiles, walked as csrc/rbf_gram.cu walks them (CTA c takes
+    tiles T·c//C … T·(c+1)//C − 1 in row-major tile order), cover every
+    entry of K exactly once; n ≤ 8 takes the row strip with no masked row."""
+    strip, rows, cols, tiles, ctas = rbf_tile_config(n, m, d)
+    assert strip == (n <= 8)
+    if strip:
+        assert rows == n  # one tile row: every row of x1, none masked
+    tiles_n, tiles_m = -(-n // rows), -(-m // cols)
+    assert tiles == tiles_n * tiles_m and 1 <= ctas <= tiles and ctas <= 264
+    # each tile index belongs to exactly one CTA's run
+    bounds = [tiles * c // ctas for c in range(ctas + 1)]
+    assert bounds[0] == 0 and bounds[-1] == tiles and all(a < b for a, b in zip(bounds, bounds[1:]))
+    # tile t is rows [rb·rows, …) × columns [cb·cols, …) with rb, cb = divmod(t, tiles_m);
+    # the row and column blocks partition [0, n) and [0, m)
+    t = np.arange(tiles)
+    rb, cb = np.divmod(t, tiles_m)
+    assert np.array_equal(np.unique(rb * tiles_m + cb), t)
+    assert (tiles_n - 1) * rows < n <= tiles_n * rows and (tiles_m - 1) * cols < m <= tiles_m * cols
+    if n * m <= 1 << 22:  # count every entry
+        count = np.zeros((n, m), np.int32)
+        for c in range(ctas):
+            for tt in range(bounds[c], bounds[c + 1]):
+                r0, c0 = (tt // tiles_m) * rows, (tt % tiles_m) * cols
+                count[r0 : r0 + rows, c0 : c0 + cols] += 1
+        assert (count == 1).all()
+
+
+def test_rbf_tile_config_degenerate():
+    assert rbf_tile_config(0, 5, 2) == rbf_tile_config(5, 0, 2) == rbf_tile_config(5, 5, 0) == (0, 0, 0, 0, 0)
 
 
 def test_gram_dispatch_on_cpu_f32_uses_matmul_formula():
