@@ -105,7 +105,32 @@ Phases (any failure raises and ends the run with a nonzero exit code):
 8b. One f64 value+grad of ``map_neg_logp`` and of ``map_neg_logp_blocked``
    at N = 16,384: values and gradients agree to rtol 1e-9; prints each
    one's time and peak memory.
-9. Print the card, the kernels' JSON line, then ``{"ok": true, ...}`` last.
+9. The sparse regressor on ``bench_fitc50k.py``'s problem (N = 50,000,
+   one ExpQuad ARD term over 2 dims, 512 k-means inducing points from
+   8,192 rows, the lengthscale prior from a 512-row subsample, all drawn
+   from ``default_rng(0)`` in the bench's order): 8 restarts of L-BFGS on
+   ``fitc_neg_logp`` (maxiter 60), then ``fitc_predict`` on the bench's
+   200-point line, at f32 after one untimed value+grad. Prints k-means,
+   fit and predict seconds, iterations and evaluations per restart,
+   ``rbf_gram`` launches by shape and peak memory; at the fit, one
+   value+grad's and one value's seconds and, from torch.profiler, the
+   device's busy time in the value+grad and its largest kernels. Checks: the f32
+   objective at the fit within 0.005 nats/point of f64 (plain path),
+   finite line mean/var, the kernel launched; prints the line's RMSE
+   against the noise-free surface.
+10. The sparse classifier on the same rows and inducing points, labels
+   1[y > 0]: ``fit_fitc_laplace_map`` (8 restarts, maxiter 60), then
+   ``fitc_laplace_predict`` and 4 draws of ``fitc_laplace_draw_latent``
+   on the line. Prints and checks as phase 9, with the line's accuracy
+   against the noise-free sign.
+11. The dense classifier at N = 2,048 (the same generator, seed 1):
+   ``fit_laplace_map`` (8 restarts, maxiter 60), ``laplace_predict`` and
+   4 draws of ``laplace_draw_latent``; the analytic (autograd
+   ``Function``) gradient at the first start against central differences
+   of the f32 value (|Δ| ≤ 2e-2·max(|FD|, 1)) and against the f64
+   gradient (≤ 1e-3 of its largest entry); one timed value+grad at
+   N = 16,384 with its peak memory.
+12. Print the card, the kernels' JSON line, then ``{"ok": true, ...}`` last.
    Each kernel's ``bound_ms`` is the largest of its bytes over 3.35 TB/s,
    its product flops as three TF32 passes over 495 TFLOP/s, and its other
    operations over the 67 TFLOP/s FP32 peak; ``bound_fp32_ms`` is the
@@ -145,7 +170,14 @@ from gumbi_tpu_torch.ops import (  # noqa: E402
     constrain,
     draw_probes,
     draw_samples,
+    fit_fitc_laplace_map,
     fit_kron_map,
+    fit_laplace_map,
+    fitc_laplace_draw_latent,
+    fitc_laplace_neg_logp,
+    fitc_laplace_predict,
+    fitc_neg_logp,
+    fitc_predict,
     fused_matvec_plain,
     fused_stationary_matvec,
     fused_stationary_matvec_sym,
@@ -159,8 +191,10 @@ from gumbi_tpu_torch.ops import (  # noqa: E402
     kron_cache,
     kron_neg_logp,
     kron_predict_diag,
+    laplace_draw_latent,
+    laplace_neg_logp,
+    laplace_predict,
     lbfgs_backtracking_minimize,
-    ls_prior_params,
     map_neg_logp,
     map_neg_logp_blocked,
     multi_restart_minimize,
@@ -184,6 +218,17 @@ from gumbi_tpu_torch.ops.iterative import _row_fn, pivoted_cholesky  # noqa: E40
 from gumbi_tpu_torch.ops.kronecker import _continuous_gram, _whitened_eig, _whitened_systems, kron_parts  # noqa: E402
 from gumbi_tpu_torch.ops.mll import DEFAULT_JITTER, _noisy_gram  # noqa: E402
 from gumbi_tpu_torch.ops.tf32x3 import matmul_3xtf32_plain, tf32_round  # noqa: E402
+from gumbi_tpu_torch.tools.fitc_problem import (  # noqa: E402
+    FITC_KMEANS_ITERS,
+    FITC_KMEANS_ROWS,
+    FITC_LINE,
+    FITC_N,
+    FITC_NU,
+    fitc_spec,
+    ls_prior_from_subsample,
+    make_fitc_problem,
+    problem_at,
+)
 
 # bench.py's workload (same seeds, spec and stage sizes)
 N_LOCS = 5120
@@ -332,7 +377,14 @@ def _time_ms(fn, reps=20):
 RBF_PATH_SHAPES = [(1, 50_000), (4, 50_000), (1, 23), (5, 10_001), (2_500, 50_000), (16_384, 16_384)]
 # Timed shapes: every path's (iterative row and block; Kronecker/dense coarse
 # 1,024²; Kronecker 5,120² and predict 5,120×10,000; dense polish 16,384²).
-RBF_TIMED_SHAPES = [(1, 50_000), (2_500, 50_000), (1024, 1024), (5120, 5120), (5120, 10_000), (16_384, 16_384)]
+RBF_TIMED_SHAPES = [(1, 50_000), (2_500, 50_000), (1024, 1024), (5120, 5120), (5120, 10_000), (16_384, 16_384),
+                    (512, 50_000), (50_000, 512), (2048, 2048)]
+# Shapes the sparse regressor and the classifiers give it (phases 9-11):
+# FITC's Kux and Kuu, FITC-Laplace's Kfu, the 200-point line's cross-Grams
+# with the inducing points both ways round and with the dense classifier's
+# rows, its joint block, the dense classifier's 2,048².
+RBF_SPARSE_SHAPES = [(512, 50_000), (50_000, 512), (512, 512), (512, 200), (200, 512), (200, 2048), (200, 200),
+                     (2048, 2048)]
 RBF_REPS, RBF_RUNS = 100, 5  # CUDA events over 100 launches; median of 5 such runs
 RBF_SHAPES = {}  # path -> Counter of rbf_gram launches by output shape (phases 3, 6, 8)
 
@@ -423,6 +475,8 @@ def phase2_kernel_vs_plain():
         for d in (1, 2, 3, 17):
             max_abs = max(max_abs, _rbf_check(n, m, d, grad=small))
         max_abs = max(max_abs, _rbf_check(n, m, 2, ls_shared=True, grad=small))
+    for n, m in RBF_SPARSE_SHAPES:
+        max_abs = max(max_abs, _rbf_check(n, m, 2))
 
     # exactly one CUDA kernel per call (torch.profiler on the card), the
     # autograd route and a shared (expanded) lengthscale included
@@ -460,18 +514,6 @@ def phase2_kernel_vs_plain():
     return max_abs, times
 
 
-def _ls_prior_from_subsample(sub):
-    """The benches' lengthscale prior: ``ls_prior_params`` of each dimension's
-    smallest (at least 0.01) and largest pairwise distance within ``sub``."""
-    lowers, uppers = [], []
-    for j in range(sub.shape[1]):
-        dd = np.abs(sub[:, j : j + 1] - sub[:, j : j + 1].T)[np.triu_indices(len(sub), 1)]
-        dd = dd[dd > 0]
-        lowers.append(max(float(dd.min()), 0.01))
-        uppers.append(float(dd.max()))
-    return ls_prior_params(lowers, uppers)
-
-
 def make_problem(n_locs, device, dtype):
     """bench.py's make_problem, rebuilt with numpy: same seeds, same spec."""
     rng = np.random.default_rng(0)
@@ -490,7 +532,7 @@ def make_problem(n_locs, device, dtype):
         noise_coreg=CoregTerm(name="Output_noise", col=0, d_out=2),
     )
     sub = Xb[rng.choice(n_locs, min(512, n_locs), replace=False)]
-    ls_alpha, ls_beta = _ls_prior_from_subsample(sub)
+    ls_alpha, ls_beta = ls_prior_from_subsample(sub)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
     return spec, t(Xb), t(Y), ls_alpha, ls_beta
 
@@ -897,7 +939,7 @@ def campaign_problem(n, device, dtype):
     yz = (y - y.mean()) / y.std()
     rng = np.random.default_rng(0)
     sub = Xz[rng.choice(n, min(512, n), replace=False)]
-    la, lb = _ls_prior_from_subsample(sub)
+    la, lb = ls_prior_from_subsample(sub)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
     return t(Xz), t(yz), la, lb
 
@@ -1260,7 +1302,7 @@ def make_dense_problem(n, np_dtype):
     y = (np.sin(1.3 * X[:, 0]) * np.cos(0.9 * X[:, 1]) + rng.normal(0, 0.1, n)).astype(np_dtype)
     spec = GPSpec(terms=(GPTerm(suffix="total", kernel="ExpQuad"),), d_cont=2, ard=True)
     sub = X[rng.choice(n, min(512, n), replace=False)]
-    la, lb = _ls_prior_from_subsample(sub)
+    la, lb = ls_prior_from_subsample(sub)
     return spec, X, y, la, lb, rng
 
 
@@ -1493,6 +1535,311 @@ def phase8b_blocked_backward():
     return out
 
 
+# ------------------------------------------------------------------
+# Phases 9-11: the sparse regressor and both Laplace classifiers
+# ------------------------------------------------------------------
+
+FITC_RESTARTS, FITC_MAXITER = 8, 60  # bench_fitc50k.py's restarts and maxiter
+LAPLACE_N, LAPLACE_BIG_N, N_LATENT_DRAWS = 2048, 16_384, 4
+
+
+def _peak_reset(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gib(device):
+    return torch.cuda.max_memory_allocated() / 2**30 if torch.device(device).type == "cuda" else None
+
+
+def _line_truth(p):
+    """The noise-free surface on the 200-point line: sin(1.3·x₀)·cos(0)."""
+    return np.sin(1.3 * p["g"].astype(np.float64))
+
+
+def run_fitc_campaign(p, device, dtype, n_restarts=FITC_RESTARTS, maxiter=FITC_MAXITER):
+    """bench_fitc50k.py's fit and predict through the port's ops: ``initial_params``
+    (seed 0), ``multi_restart_minimize`` on ``fitc_neg_logp`` (restarts one after
+    another, tol 1e-6), then ``fitc_predict`` (with noise) on the 200-point line.
+    Returns results, stage times, evaluations per restart and launches."""
+    spec = fitc_spec()
+    la_t, lb_t = (torch.as_tensor(a, dtype=dtype, device=device) for a in (p["la"], p["lb"]))
+    u0s = initial_params(spec, p["la"], p["lb"], n_restarts=n_restarts, seed=0, dtype=dtype, device=device)
+    evals = []
+
+    def objective(u):
+        evals[-1] += 1
+        return fitc_neg_logp(spec, u, p["xc"], p["xk"], p["xu_c"], p["xu_k"], p["y"], la_t, lb_t)
+
+    def runner(u0):
+        evals.append(0)
+        return lbfgs_backtracking_minimize(objective, u0, maxiter=maxiter, ftol=1e-6)
+
+    before = RbfGram.launches
+    _peak_reset(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    u_best, f_best, aux = multi_restart_minimize(None, u0s, runner=runner)
+    _sync(device)
+    t1 = time.perf_counter()
+    fit_launches = RbfGram.launches - before
+    params = constrain(u_best)
+    with torch.no_grad():
+        mean, var = fitc_predict(spec, params, p["xc"], p["xk"], p["xu_c"], p["xu_k"], p["y"], p["line"], p["line_k"])
+    _sync(device)
+    t2 = time.perf_counter()
+    rmse = float(np.sqrt(np.mean((mean.double().cpu().numpy() - _line_truth(p)) ** 2)))
+    return dict(spec=spec, la=la_t, lb=lb_t, u0s=u0s, u_best=u_best, f_best=float(f_best), aux=aux, evals=evals,
+                mean=mean, var=var, rmse=rmse, peak_gib=_peak_gib(device),
+                launches={"fit": fit_launches, "predict": RbfGram.launches - before - fit_launches},
+                phases={"fit_s": t1 - t0, "predict_s": t2 - t1})
+
+
+def _accuracy(p, prob):
+    """Share of the line where the predicted class (prob > 0.5) is the
+    noise-free surface's sign."""
+    return float(np.mean((prob.double().cpu().numpy() > 0.5) == (_line_truth(p) > 0)))
+
+
+def run_classifier_campaign(p, device, dtype, sparse, n_restarts=FITC_RESTARTS, maxiter=FITC_MAXITER,
+                            n_draws=N_LATENT_DRAWS):
+    """A classifier on ``p``'s rows with labels 1[y > 0]: ``fit_fitc_laplace_map``
+    on its inducing points (``sparse``) or ``fit_laplace_map`` (``initial_params``
+    seed 0), then the matching predict and ``n_draws`` latent draws
+    (generator seed 0) on the line."""
+    spec = fitc_spec("bernoulli")
+    u0s = initial_params(spec, p["la"], p["lb"], n_restarts=n_restarts, seed=0, dtype=dtype, device=device)
+    data = (p["xc"], p["xk"], p["xu_c"], p["xu_k"]) if sparse else (p["xc"], p["xk"])
+    fit = fit_fitc_laplace_map if sparse else fit_laplace_map
+    predict, draw = ((fitc_laplace_predict, fitc_laplace_draw_latent) if sparse
+                     else (laplace_predict, laplace_draw_latent))
+    before = RbfGram.launches
+    _peak_reset(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    u_best, f_best, aux = fit(spec, *data, p["yb"], p["la"], p["lb"], u0s, maxiter=maxiter, device=device)
+    _sync(device)
+    t1 = time.perf_counter()
+    fit_launches = RbfGram.launches - before
+    with torch.no_grad():
+        args = (spec, constrain(u_best), *data, p["yb"], p["line"], p["line_k"])
+        mean, var, prob = predict(*args)
+        _sync(device)
+        t2 = time.perf_counter()
+        draws = draw(*args, torch.Generator(device=device).manual_seed(0), n_samples=n_draws)
+        _sync(device)
+        t3 = time.perf_counter()
+    return dict(spec=spec, u0s=u0s, u_best=u_best, f_best=float(f_best), aux=aux, mean=mean, var=var, prob=prob,
+                draws=draws, accuracy=_accuracy(p, prob), peak_gib=_peak_gib(device),
+                launches={"fit": fit_launches, "predict": RbfGram.launches - before - fit_launches},
+                phases={"fit_s": t1 - t0, "predict_s": t2 - t1, "draw_s": t3 - t2})
+
+
+def _f64_gap(fn, r, n):
+    """(f32 value at the fit, f64 value there on the plain path, nats/point
+    apart): ``fn(u, dtype)`` evaluates the objective at the model dtype given."""
+    with torch.no_grad():
+        f32 = float(fn(r["u_best"], torch.float32))
+        f64 = float(fn({k: v.double() for k, v in r["u_best"].items()}, torch.float64))
+    return f32, f64, abs(f32 - f64) / n
+
+
+def _log_fit(tag, r, n_evals):
+    aux = r["aux"]
+    ph = " | ".join(f"{k[:-2]} {v:.3f} s" for k, v in r["phases"].items())
+    log(f"[{tag}] {ph} | {len(aux['iters'])} restarts, iterations {aux['iters'].tolist()}, evaluations "
+        f"{n_evals} | values {[round(float(v), 4) for v in aux['all_values']]} (winner {aux['best_restart']}) | "
+        f"ls {constrain(r['u_best'])['ls_total'].tolist()} eta {float(constrain(r['u_best'])['η_total']):.4f} | "
+        f"peak {r['peak_gib']:.2f} GiB")
+
+
+def _eval_breakdown(tag, objective, u):
+    """Host seconds of one value+grad and of one value at ``u`` (mean of 3
+    after a warm call), peak memory of the value+grad, and from one
+    torch.profiler pass of it the device time (sum over its CUDA kernels and
+    copies) with the four largest names: how much of the call the card is
+    busy, and with what."""
+    def value():
+        with torch.no_grad():
+            return objective(u)
+
+    vg_s, peak = _time_host(lambda: _value_and_grad(objective, u), 3)
+    v_s, _ = _time_host(value, 3)
+    ops = _profile_kernels(lambda: _value_and_grad(objective, u), 1)
+    by_name = collections.Counter()
+    for name, us in ops:
+        by_name[name[:48]] += us / 1e3
+    busy = sum(by_name.values())
+    top = ", ".join(f"{k} {v:.2f} ms" for k, v in by_name.most_common(4))
+    log(f"[{tag}] at the fit: value+grad {vg_s * 1e3:.2f} ms (peak {peak / 2**30:.2f} GiB) | value "
+        f"{v_s * 1e3:.2f} ms | device busy {busy:.2f} ms of the value+grad in {len(ops)} ops ({busy / (vg_s * 1e3):.0%}) | top: {top}")
+    return vg_s, v_s
+
+
+def phase9_fitc():
+    """bench_fitc50k.py's problem: k-means, fit (8 restarts, maxiter 60) and the
+    200-point predict at f32, after one untimed value+grad at the first start;
+    the f32 objective at the fit against f64 on the plain path."""
+    p = make_fitc_problem(FITC_N, "cuda", torch.float32)
+    log(f"[fitc] N={FITC_N} M={FITC_NU}: k-means {p['kmeans_s']:.3f} s on the host ({FITC_KMEANS_ROWS} rows, "
+        f"{FITC_KMEANS_ITERS} iterations) | ls prior alpha {p['la'].tolist()} beta {p['lb'].tolist()}")
+    spec = fitc_spec()
+    warm = initial_params(spec, p["la"], p["lb"], n_restarts=1, seed=0, dtype=torch.float32, device="cuda")
+    la_t, lb_t = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (p["la"], p["lb"]))
+    _value_and_grad(lambda u: fitc_neg_logp(spec, u, p["xc"], p["xk"], p["xu_c"], p["xu_k"], p["y"], la_t, lb_t),
+                    {k: v[0] for k, v in warm.items()})
+    RbfGram.launches = 0
+    with count_rbf_shapes("fitc") as shapes:
+        r = run_fitc_campaign(p, "cuda", torch.float32)
+    launches = RbfGram.launches
+    _log_fit("fitc", r, r["evals"])
+    log(f"[fitc] rbf_gram launches {launches} (fit {r['launches']['fit']}, predict {r['launches']['predict']}) | "
+        f"by shape {dict(shapes)}")
+
+    def objective(u, dtype):
+        q = problem_at(p, dtype)
+        return fitc_neg_logp(spec, u, q["xc"], q["xk"], q["xu_c"], q["xu_k"], q["y"], r["la"].to(dtype),
+                             r["lb"].to(dtype))
+
+    f32, f64, per_pt = _f64_gap(objective, r, FITC_N)
+    _eval_breakdown("fitc", lambda u: objective(u, torch.float32), r["u_best"])
+    mean, var = r["mean"], r["var"]
+    log(f"[fitc] neg_logp at fit: f32 {f32:.4f} (fit {r['f_best']:.4f}) | f64 {f64:.4f} | |diff| {per_pt:.2e} "
+        f"nats/pt (tol {BASIN_TOL}) | line RMSE vs truth {r['rmse']:.4f} | mean [{float(mean.min()):.3f}, "
+        f"{float(mean.max()):.3f}] var [{float(var.min()):.2e}, {float(var.max()):.2e}]")
+    assert sum(shapes.values()) == launches > 0, f"rbf_gram launches on the FITC path: {launches}, {dict(shapes)}"
+    assert r["launches"]["predict"] > 0, "the FITC predict never launched rbf_gram"
+    assert mean.shape == (FITC_LINE,) and var.shape == (FITC_LINE,), (mean.shape, var.shape)
+    assert bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all()) and bool((var >= 0).all())
+    assert per_pt <= BASIN_TOL, f"FITC: f32 and f64 objectives differ by {per_pt} nats/pt"
+    return p, launches
+
+
+def _check_classifier(label, r, launches, shapes, per_pt):
+    """Every launch counted by shape, the kernel launched in fit and predict,
+    finite line outputs and draws of the right shape, and the f32 objective
+    at the fit within the basin tolerance of f64."""
+    assert sum(shapes.values()) == launches > 0, f"rbf_gram launches on the {label} path: {launches}"
+    assert r["launches"]["predict"] > 0, f"the {label} predict never launched rbf_gram"
+    for name in ("mean", "var", "prob"):
+        assert r[name].shape == (FITC_LINE,) and bool(torch.isfinite(r[name]).all()), f"{label} {name}"
+    assert r["draws"].shape == (N_LATENT_DRAWS, FITC_LINE) and bool(torch.isfinite(r["draws"]).all()), \
+        f"{label}: latent draws not finite"
+    assert per_pt <= BASIN_TOL, f"{label}: f32 and f64 objectives differ by {per_pt} nats/pt"
+
+
+def phase10_fitc_laplace(p):
+    """The sparse classifier at N = 50,000 on phase 9's rows and inducing
+    points: fit (8 restarts, maxiter 60), predict, 4 latent draws at f32,
+    after one untimed value+grad at the first start; f32 against f64 at the
+    fit and the line's accuracy."""
+    spec = fitc_spec("bernoulli")
+    warm = initial_params(spec, p["la"], p["lb"], n_restarts=1, seed=0, dtype=torch.float32, device="cuda")
+    la_t, lb_t = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (p["la"], p["lb"]))
+    _value_and_grad(lambda u: fitc_laplace_neg_logp(spec, u, p["xc"], p["xk"], p["xu_c"], p["xu_k"], p["yb"], la_t,
+                                                    lb_t), {k: v[0] for k, v in warm.items()})
+    RbfGram.launches = 0
+    with count_rbf_shapes("fitc_laplace") as shapes:
+        r = run_classifier_campaign(p, "cuda", torch.float32, sparse=True)
+    launches = RbfGram.launches
+    evals = r["launches"]["fit"] // 2  # an evaluation makes two Grams: Kuu and the (N, M) Kfu
+    _log_fit("fitc_laplace", r, f"{evals} (two Grams each)")
+    log(f"[fitc_laplace] rbf_gram launches {launches} (fit {r['launches']['fit']}, predict + draws "
+        f"{r['launches']['predict']}) | by shape {dict(shapes)}")
+
+    def objective(u, dtype):
+        q = problem_at(p, dtype)
+        return fitc_laplace_neg_logp(spec, u, q["xc"], q["xk"], q["xu_c"], q["xu_k"], q["yb"],
+                                     torch.as_tensor(p["la"], dtype=dtype, device="cuda"),
+                                     torch.as_tensor(p["lb"], dtype=dtype, device="cuda"))
+
+    f32, f64, per_pt = _f64_gap(objective, r, FITC_N)
+    _eval_breakdown("fitc_laplace", lambda u: objective(u, torch.float32), r["u_best"])
+    log(f"[fitc_laplace] neg_logp at fit: f32 {f32:.4f} (fit {r['f_best']:.4f}) | f64 {f64:.4f} | |diff| "
+        f"{per_pt:.2e} nats/pt (tol {BASIN_TOL}) | line accuracy vs the noise-free sign {r['accuracy']:.3f} | "
+        f"prob [{float(r['prob'].min()):.3f}, {float(r['prob'].max()):.3f}] | draws {tuple(r['draws'].shape)}")
+    _check_classifier("FITC-Laplace", r, launches, shapes, per_pt)
+    return launches
+
+
+LAPLACE_FD_H = 1e-2  # central-difference step in the unconstrained parameters
+# |grad − FD of the f32 value| ≤ tol·max(|FD|, 1). The FD's error: f32
+# rounding of a ~400-nat value (~2.4e-5 each) over 2h, ~2e-3 absolute at
+# worst, plus O(h²) truncation; against gradients of ~100 that is ~2e-5
+# relative. Measured 6.15e-5 on one H100 (PERF.md §6).
+LAPLACE_FD_TOL = 1e-3
+LAPLACE_F64_GRAD_RTOL = 1e-3  # f32 gradient against the f64 one, relative to the largest entry
+
+
+def phase11_laplace():
+    """The dense classifier: a campaign at N = 2,048 (seed 1; fit, predict,
+    4 draws, f32, after one untimed value+grad), its Function gradient
+    against central differences of the f32 value and against the f64
+    gradient at the first start, and one timed value+grad at N = 16,384."""
+    p = make_fitc_problem(LAPLACE_N, "cuda", torch.float32, seed=1, kmeans=False)
+    spec = fitc_spec("bernoulli")
+    u0s = initial_params(spec, p["la"], p["lb"], n_restarts=1, seed=0, dtype=torch.float32, device="cuda")
+    u0 = {k: v[0] for k, v in u0s.items()}
+
+    def objective_at(q, dtype):
+        la_t, lb_t = (torch.as_tensor(a, dtype=dtype, device="cuda") for a in (q["la"], q["lb"]))
+        return lambda u: laplace_neg_logp(spec, u, q["xc"], q["xk"], q["yb"], la_t, lb_t)
+
+    obj32 = objective_at(p, torch.float32)
+    _value_and_grad(obj32, u0)
+    RbfGram.launches = 0
+    with count_rbf_shapes("laplace") as shapes:
+        r = run_classifier_campaign(p, "cuda", torch.float32, sparse=False)
+    launches = RbfGram.launches
+    _log_fit("laplace", r, f"{r['launches']['fit']} (one Gram each)")
+    log(f"[laplace] rbf_gram launches {launches} (fit {r['launches']['fit']}, predict + draws "
+        f"{r['launches']['predict']}) | by shape {dict(shapes)}")
+    f32, f64, per_pt = _f64_gap(lambda u, dt: objective_at(problem_at(p, dt), dt)(u), r, LAPLACE_N)
+    _eval_breakdown("laplace", obj32, r["u_best"])
+    log(f"[laplace] neg_logp at fit: f32 {f32:.4f} (fit {r['f_best']:.4f}) | f64 {f64:.4f} | |diff| {per_pt:.2e} "
+        f"nats/pt (tol {BASIN_TOL}) | line accuracy {r['accuracy']:.3f} | draws {tuple(r['draws'].shape)}")
+    _check_classifier("Laplace", r, launches, shapes, per_pt)
+
+    # the Function's gradient at the first start: central differences of the
+    # f32 value along each coordinate, and the f64 gradient
+    v32, g32 = _value_and_grad(obj32, u0)
+    _, g64 = _value_and_grad(objective_at(problem_at(p, torch.float64), torch.float64),
+                             {k: v.double() for k, v in u0.items()})
+    worst_fd, worst_64 = 0.0, 0.0
+    for k, v in u0.items():
+        flat = v.reshape(-1)
+        for i in range(flat.numel()):
+            vals = []
+            for s in (1.0, -1.0):
+                u = {kk: vv.clone() for kk, vv in u0.items()}
+                u[k].reshape(-1)[i] += s * LAPLACE_FD_H
+                with torch.no_grad():
+                    vals.append(float(obj32(u)))
+            fd = (vals[0] - vals[1]) / (2 * LAPLACE_FD_H)
+            g = float(g32[k].reshape(-1)[i])
+            worst_fd = max(worst_fd, abs(g - fd) / max(abs(fd), 1.0))
+            log(f"[laplace] d/d{k}[{i}] at start 0: Function f32 {g:.5f} | central difference (h {LAPLACE_FD_H}) "
+                f"{fd:.5f} | Function f64 {float(g64[k].reshape(-1)[i]):.5f}")
+    scale = max(float(x.abs().max()) for x in g64.values())
+    worst_64 = max(float((g32[k].double() - g64[k]).abs().max()) for k in g64) / scale
+    log(f"[laplace] gradient checks: max |f32 - FD|/max(|FD|, 1) {worst_fd:.2e} (tol {LAPLACE_FD_TOL}) | "
+        f"max |f32 - f64|/max|f64| {worst_64:.2e} (tol {LAPLACE_F64_GRAD_RTOL})")
+    assert worst_fd <= LAPLACE_FD_TOL, f"Laplace Function gradient off the f32 central difference: {worst_fd}"
+    assert worst_64 <= LAPLACE_F64_GRAD_RTOL, f"Laplace f32 gradient off the f64 one: {worst_64}"
+
+    # one value+grad at the dense regression path's size, at the fitted point
+    big = make_fitc_problem(LAPLACE_BIG_N, "cuda", torch.float32, seed=1, kmeans=False)
+    obj_big = objective_at(big, torch.float32)
+    out = {}
+    secs, peak = _time_host(lambda: out.__setitem__("vg", _value_and_grad(obj_big, r["u_best"])), 1)
+    value, grad = out["vg"]
+    log(f"[laplace] value+grad N={LAPLACE_BIG_N} f32 at the N={LAPLACE_N} fit: {secs:.4f} s | peak {peak / 2**30:.2f} "
+        f"GiB | value {float(value):.4f} | grad {[(k, v.tolist()) for k, v in grad.items()]}")
+    assert np.isfinite(float(value)) and all(bool(torch.isfinite(v).all()) for v in grad.values()), \
+        "the N = 16,384 Laplace value+grad is not finite"
+    return launches, secs, peak
+
+
 def _rbf_bound(n, m, d):
     bytes_s = 4.0 * (n * d + m * d + n * m) / HBM_BYTES_PER_S
     ops_s = n * m * (3.0 * d + 2.0) / FP32_PEAK
@@ -1525,6 +1872,10 @@ def main():
     chol_max_abs, chol_times = phase7_chol_vs_plain()
     dense_launches, _, _ = phase8_dense(breakdown="--dense-breakdown" in sys.argv[1:])
     phase8b_blocked_backward()
+    p, fitc_launches = phase9_fitc()
+    fitc_laplace_launches = phase10_fitc_laplace(p)
+    del p
+    laplace_launches, _, _ = phase11_laplace()
     sms, mhz, peak = _fp32_peak_of_card()
     log(f"[card] {sms} SMs at max {mhz:.0f} MHz: FP32 FMA peak {peak / 1e12:.1f} TFLOP/s "
         f"(bounds use the data sheet's {FP32_PEAK / 1e12:.0f})")
@@ -1538,9 +1889,11 @@ def main():
     kernels = [
         {"name": "rbf_gram", "route": "cuda", "source": "gumbi_tpu_torch/csrc/rbf_gram.cu",
          "replaces": "gumbi_tpu/ops/pallas_kernels.py:111",
-         "launches": kron_launches["total"] + iter_launches["rbf_gram"] + dense_launches["rbf_gram"],
+         "launches": kron_launches["total"] + iter_launches["rbf_gram"] + dense_launches["rbf_gram"]
+         + fitc_launches + fitc_laplace_launches + laplace_launches,
          "launches_by_path": {"kronecker": kron_launches["total"], "iterative": iter_launches["rbf_gram"],
-                              "dense": dense_launches["rbf_gram"]},
+                              "dense": dense_launches["rbf_gram"], "fitc": fitc_launches,
+                              "fitc_laplace": fitc_laplace_launches, "laplace": laplace_launches},
          "launches_by_path_and_shape": {path: dict(c) for path, c in RBF_SHAPES.items()},
          "max_abs_err": rbf_max_abs, "ms": k_ms, "plain_ms": p_ms, "bound_ms": rb, "bound_fp32_ms": rb,
          "bound_by": rby,

@@ -1,5 +1,20 @@
 """PyTorch/CUDA compute core: kernels, likelihoods, optimizers, posteriors."""
 
+from .fitc import (  # noqa: F401
+    fitc_draw_samples,
+    fitc_mll,
+    fitc_neg_logp,
+    fitc_predict,
+    fitc_predict_cov,
+    kmeans_inducing,
+    select_inducing,
+)
+from .fitc_laplace import (  # noqa: F401
+    fitc_laplace_draw_latent,
+    fitc_laplace_mll,
+    fitc_laplace_neg_logp,
+    fitc_laplace_predict,
+)
 from .hopper_chol import BlockedChol, cholesky_plain, hopper_cholesky, seam_cholesky  # noqa: F401
 from .hopper_kernels import (  # noqa: F401
     FUSABLE_KERNELS,
@@ -37,6 +52,13 @@ from .kernels import (  # noqa: F401
     output_correlation,
 )
 from .kronecker import KronCache, kron_cache, kron_mll, kron_neg_logp, kron_predict_diag  # noqa: F401
+from .laplace import (  # noqa: F401
+    laplace_draw_latent,
+    laplace_mll,
+    laplace_mode,
+    laplace_neg_logp,
+    laplace_predict,
+)
 from .linalg import quad_and_logdet, spd_solve  # noqa: F401
 from .mll import (  # noqa: F401
     DEFAULT_JITTER,
@@ -48,8 +70,10 @@ from .mll import (  # noqa: F401
 )
 from .optimize import (  # noqa: F401
     coarse_restart_map,
+    fit_fitc_laplace_map,
     fit_gp_map,
     fit_kron_map,
+    fit_laplace_map,
     lbfgs_backtracking_minimize,
     multi_restart_minimize,
 )

@@ -30,7 +30,20 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["quad_and_logdet", "spd_solve", "safe_cholesky", "cho_solve", "cho_inverse"]
+__all__ = ["quad_and_logdet", "spd_solve", "safe_cholesky", "cholesky_nan", "cho_solve", "cho_inverse"]
+
+
+def cholesky_nan(A):
+    """The library's lower Cholesky factor of ``A`` (..., N, N); NaN where
+    ``A`` is not PD, as ``jnp.linalg.cholesky`` returns. Differentiable.
+
+    Not the seam: the Laplace and FITC modules call it where the reference
+    calls ``jnp.linalg.cholesky`` itself, so a swap of :func:`safe_cholesky`
+    does not reach those factors (nor does the reference's
+    ``_chol_and_alpha`` swap reach them).
+    """
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info == 0)[..., None, None], L, torch.nan)
 
 
 def safe_cholesky(A):
@@ -44,8 +57,7 @@ def safe_cholesky(A):
     reference's ``linalg._chol_and_alpha``) puts another factorization, such
     as :func:`.hopper_chol.seam_cholesky`, under all of them.
     """
-    L, info = torch.linalg.cholesky_ex(A)
-    return torch.where((info == 0)[..., None, None], L, torch.nan)
+    return cholesky_nan(A)
 
 
 def cho_solve(L, B):

@@ -28,6 +28,7 @@ __all__ = [
     "predict_cov",
     "predict_cov_level",
     "draw_samples",
+    "joint_draws",
 ]
 
 
@@ -159,3 +160,25 @@ def draw_samples(
     if eps is None:
         eps = torch.randn((n_samples, mean.shape[0]), dtype=mean.dtype, device=mean.device, generator=generator)
     return mean[None, :] + eps @ Lss.T
+
+
+def joint_draws(mean, cov, prior_diag, jitter, generator=None, n_samples=1, eps=None):
+    """``mean + eps·Lᵀ`` with L = chol(cov + floor·I), shape (n_samples, M):
+    the draws of the sparse and Laplace posteriors.
+
+    floor = max(jitter, M·eps_dtype·mean(prior_diag)), the relative rule of
+    ``fitc._stabilized_kuu``: the reference's jitter wherever it clears the
+    dtype's rounding of ``cov`` (always at f64, so the draws are the
+    reference's). A named divergence: at f32 a latent covariance whose
+    prior variance is tens of units loses more than 1e-6 of its smallest
+    eigenvalue to rounding, and the reference's floor gives NaN draws
+    (``tools/probe_laplace_precision.py`` measures the sparse one).
+    ``eps`` (n_samples, M) is the standard-normal block, or it comes from
+    ``generator`` (the reference draws it from a JAX key).
+    """
+    m = cov.shape[0]
+    floor = torch.clamp(m * torch.finfo(cov.dtype).eps * prior_diag.mean(), min=jitter)
+    L = linalg.cholesky_nan(cov + floor * torch.eye(m, dtype=cov.dtype, device=cov.device))
+    if eps is None:
+        eps = torch.randn((n_samples, m), dtype=mean.dtype, device=mean.device, generator=generator)
+    return mean[None, :] + eps @ L.T

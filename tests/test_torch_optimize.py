@@ -155,9 +155,9 @@ def test_fit_casts_inputs_to_model_dtype(in_dtype):
 
 
 def test_entry_points_without_device_run_on_cuda_or_raise():
-    """With numpy inputs and no ``device``, the fit entry points and
-    ``initial_params`` go to the CUDA card; on a host without one they raise
-    instead of carrying on on the CPU."""
+    """With numpy inputs and no ``device``, the fit entry points,
+    ``initial_params`` and ``select_inducing`` go to the CUDA card; on a host
+    without one they raise instead of carrying on on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device exists")
     jspec, xc, Y, la, lb = _kron_problem(n=8)
@@ -172,3 +172,19 @@ def test_entry_points_without_device_run_on_cuda_or_raise():
         to.fit_gp_map(spec, xc, xk, Y[:, 0], la, lb, {k: v.numpy() for k, v in u0s.items()}, maxiter=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         to.fit_kron_map(spec, xc, Y, la, lb, u0s, maxiter=2)  # CPU starts do not pick the device
+
+    from gumbi_tpu_torch.ops.fitc import select_inducing
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        select_inducing(xc, xk, 4, 2, seed=0, dtype=torch.float32)
+    xu_c, xu_k = select_inducing(xc, xk, 4, 2, seed=0, dtype=torch.float64, device="cpu")
+    assert xu_c.device.type == "cpu" and xu_k.shape == (4, 1)
+    bspec = spec_from_reference(jk.GPSpec(terms=(jk.GPTerm(suffix="total", kernel="ExpQuad"),), d_cont=2,
+                                          likelihood="bernoulli"))
+    ub = {k: v.numpy() for k, v in initial_params(bspec, la, lb, n_restarts=1, seed=0, device="cpu").items()}
+    labels = (Y[:, 0] > 0).astype(float)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        to.fit_laplace_map(bspec, xc, xk[:, :0], labels, la, lb, ub, maxiter=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        to.fit_fitc_laplace_map(bspec, xc, xk[:, :0], xu_c.numpy(), xu_k[:, :0].numpy(), labels, la, lb, ub,
+                                maxiter=2)
