@@ -23,7 +23,9 @@ Phases (any failure raises and ends the run with a nonzero exit code):
    (2,500, 50,000) block, the dense polish's 16,384²), d ∈ {1, 2, 3, 17}
    and a shared lengthscale expanded to d entries: max |ΔK|/η² ≤ 1e-5,
    two calls bit-equal, and (up to 10⁶ entries) the ls/η gradients
-   through autograd. Count with torch.profiler that each call runs exactly
+   through autograd; the same at the shapes phases 9-11 give it, at BO's
+   (phase 12) with the x1/x2 cotangents too, and at the samplers' training
+   Grams (512², 2,048²) with x2 the same tensor as x1. Count with torch.profiler that each call runs exactly
    one CUDA kernel. Time kernel and plain in turns at (1, 50,000),
    (2,500, 50,000), 1,024², 5,120², 5,120×10,000 and 16,384²: CUDA events
    over 100 launches, the median of 5 such runs, beside the profiler's
@@ -127,10 +129,43 @@ Phases (any failure raises and ends the run with a nonzero exit code):
    ``fit_laplace_map`` (8 restarts, maxiter 60), ``laplace_predict`` and
    4 draws of ``laplace_draw_latent``; the analytic (autograd
    ``Function``) gradient at the first start against central differences
-   of the f32 value (|Δ| ≤ 2e-2·max(|FD|, 1)) and against the f64
+   of the f32 value (|Δ| ≤ 1e-3·max(|FD|, 1)) and against the f64
    gradient (≤ 1e-3 of its largest entry); one timed value+grad at
    N = 16,384 with its peak memory.
-12. Print the card, the kernels' JSON line, then ``{"ok": true, ...}`` last.
+12. BO at ``GP.propose``'s defaults (q-batches of 512 Sobol raw starts
+   swept in batched chunks, top 10, L-BFGS maxiter 100, 256 Sobol normal
+   base samples, 64 training rows as the baseline): (a) ``optimize_qlog_nei``
+   at q = 4 after ``fit_gp_map`` (8 restarts) on ``make_dense_problem`` at
+   N = 512; (b) ``qlog_nehvi_2d`` through ``optimize_acqf`` at q = 2 on a
+   2-output Hadamard LMC over the same locations; (c) ``qlog_nehvi_mc``
+   (512 Sobol box points) through ``optimize_acqf`` at q = 1 over three
+   Independent fits at N = 256 (``make_indep_sample_fn``). Prints the raw
+   sweep's, the whole optimize's and the restarts' seconds, L-BFGS
+   iterations per restart and ``rbf_gram`` launches by shape. Checks:
+   candidates in the box, a finite value no lower than the best raw one,
+   the f32 value at the candidate within the run's limit (``ACQ_F64_TOL``,
+   log units) of the f64 plain path's, the kernel launched on each run.
+13. ``GP.sample``'s ops path on 12(a)'s problem from its MAP fit:
+   ``chees_sample`` (16 chains, tune 500, draws 500, target 0.75, at most
+   256 leapfrog steps) and ``hmc_sample`` (2 chains, 32 steps, target 0.8,
+   tune/draws 100/100), both on the chain-batched objective
+   ``map_neg_logp_chains``: one objective call for all chains a leapfrog
+   step (counted). Prints seconds per iteration, the adapted step size and
+   trajectory length, leapfrog steps per iteration and one batched
+   16-chain value+grad with the library and the hand factor at the seam.
+   Checks: finite draws, ChEES acceptance in [0.5, 0.95], HMC's at least
+   0.5 (the chains move), each lengthscale's
+   posterior median from ChEES and HMC within rtol 0.35, the f32 objective
+   at the ChEES median within 0.005 nats/point of f64, the kernel launched.
+14. ``GPC.sample(latent=True)``'s ops path on phase 11's problem from its
+   Laplace fit: ``ess_gpc_sample`` (2 chains, tune 500, draws 500, 4 slice
+   sweeps, target 0.3), then ``latent_conditional_proba`` over 64
+   subsampled draws on the line. Prints seconds, trials per slice step,
+   host syncs per iteration and peak memory. Checks: finite draws and
+   probabilities, MH acceptance in [0.1, 0.6], no slice step at the
+   200-trial cap after tuning, line accuracy no more than 0.05 below phase
+   11's, the kernel launched.
+15. Print the card, the kernels' JSON line, then ``{"ok": true, ...}`` last.
    Each kernel's ``bound_ms`` is the largest of its bytes over 3.35 TB/s,
    its product flops as three TF32 passes over 495 TFLOP/s, and its other
    operations over the 67 TFLOP/s FP32 peak; ``bound_fp32_ms`` is the
@@ -168,9 +203,12 @@ from gumbi_tpu_torch.ops import (  # noqa: E402
     cholesky_plain,
     coarse_restart_map,
     constrain,
+    chees_sample,
     draw_probes,
     draw_samples,
+    ess_gpc_sample,
     fit_fitc_laplace_map,
+    fit_gp_map,
     fit_kron_map,
     fit_laplace_map,
     fitc_laplace_draw_latent,
@@ -183,6 +221,7 @@ from gumbi_tpu_torch.ops import (  # noqa: E402
     fused_stationary_matvec_sym,
     gram,
     gram_diag,
+    hmc_sample,
     initial_params,
     iter_map_neg_logp,
     iter_map_value_and_grad,
@@ -194,16 +233,27 @@ from gumbi_tpu_torch.ops import (  # noqa: E402
     laplace_draw_latent,
     laplace_neg_logp,
     laplace_predict,
+    latent_conditional_proba,
     lbfgs_backtracking_minimize,
     map_neg_logp,
     map_neg_logp_blocked,
+    map_neg_logp_chains,
     multi_restart_minimize,
     noise_diag,
+    optimize_acqf,
+    optimize_qlog_nei,
     posterior_cache,
     predict_diag_chunked,
+    qlog_nehvi_2d,
+    qlog_nehvi_mc,
+    qlog_nei,
     rbf_gram,
     rbf_gram_plain,
+    sobol_normal,
+    sobol_uniform,
+    unconstrain,
 )
+from gumbi_tpu_torch.ops.acquisition import make_indep_sample_fn, raw_sweep  # noqa: E402
 from gumbi_tpu_torch.ops import _build, hopper_chol, hopper_kernels  # noqa: E402
 from gumbi_tpu_torch.ops.hopper_chol import _chol_lib  # noqa: E402
 from gumbi_tpu_torch.ops.hopper_kernels import (  # noqa: E402
@@ -226,6 +276,7 @@ from gumbi_tpu_torch.tools.fitc_problem import (  # noqa: E402
     FITC_NU,
     fitc_spec,
     ls_prior_from_subsample,
+    make_dense_problem,
     make_fitc_problem,
     problem_at,
 )
@@ -385,6 +436,16 @@ RBF_TIMED_SHAPES = [(1, 50_000), (2_500, 50_000), (1024, 1024), (5120, 5120), (5
 # rows, its joint block, the dense classifier's 2,048².
 RBF_SPARSE_SHAPES = [(512, 50_000), (50_000, 512), (512, 512), (512, 200), (200, 512), (200, 2048), (200, 200),
                      (2048, 2048)]
+# Shapes BO gives it (phase 12), d = 2: each run's restart block (q +
+# baseline rows) against the training rows, then the raw sweep's 16 stacked
+# blocks. 12a: q = 4 + 64 rows, N = 512; 12b: 2 outputs × (2 + 64),
+# N = 1,024; 12c: 1 + 64, N = 256. The restarts differentiate K with respect
+# to the candidates, so the x1/x2 cotangents are checked too. (The joint
+# prior block K(X, X) is formed in f64, off the kernel.)
+RBF_BO_SHAPES = [(68, 512), (1088, 512), (132, 1024), (2112, 1024), (65, 256), (1040, 256)]
+# The samplers' training Grams (phases 13-14), x2 the same tensor as x1, as
+# every K(X, X) has it: autograd adds both cotangents into one.
+RBF_SAME_SHAPES = [(512, 512), (2048, 2048)]
 RBF_REPS, RBF_RUNS = 100, 5  # CUDA events over 100 launches; median of 5 such runs
 RBF_SHAPES = {}  # path -> Counter of rbf_gram launches by output shape (phases 3, 6, 8)
 
@@ -413,39 +474,56 @@ def count_rbf_shapes(path):
         hopper_kernels._launch_rbf_gram = orig
 
 
-def _rbf_check(n, m, d, ls_shared=False, grad=True):
+def _rbf_check(n, m, d, ls_shared=False, grad=True, xgrad=False, same=False):
     """Hold one rbf_gram call against the plain version (max |ΔK|/η²), a
     second call bit-equal to the first, and with ``grad`` the ls/η gradients
     through the kernel's analytic backward against autograd through the
     plain formula. ``ls_shared``: one lengthscale expanded to d entries
-    (stride 0), as ``kernels._term_cont`` passes a shared one."""
+    (stride 0), as ``kernels._term_cont`` passes a shared one. ``xgrad``:
+    the x1/x2 cotangents too, against the plain gradient's largest entry
+    (entries cross zero), as BO's L-BFGS differentiates the candidates.
+    ``same``: x2 is x1 (n = m), as a joint block K(X, X) has it, so autograd
+    adds both cotangents into one."""
     x1, x2, ls, eta = _inputs(n, m, d, seed=n + 7 * m + d)
+    if same:
+        x2 = x1
     if d > 3:  # keep K away from 0 over many coordinates
         ls = ls * (d / 2) ** 0.5
     if ls_shared:
         ls = ls[:1]
     ls_k, eta_k = ls.clone().requires_grad_(grad), eta.clone().requires_grad_(grad)
     ls_p, eta_p = ls.clone().requires_grad_(grad), eta.clone().requires_grad_(grad)
-    K = rbf_gram(x1, x2, ls_k.expand(d) if ls_shared else ls_k, eta_k)
-    K2 = rbf_gram(x1, x2, ls_k.expand(d) if ls_shared else ls_k, eta_k)
+    x1_k, x1_p = x1.clone().requires_grad_(xgrad), x1.clone().requires_grad_(xgrad)
+    x2_k = x1_k if same else x2.clone().requires_grad_(xgrad)
+    x2_p = x1_p if same else x2.clone().requires_grad_(xgrad)
+    K = rbf_gram(x1_k, x2_k, ls_k.expand(d) if ls_shared else ls_k, eta_k)
+    K2 = rbf_gram(x1_k, x2_k, ls_k.expand(d) if ls_shared else ls_k, eta_k)
     torch.cuda.synchronize()
-    Kp = rbf_gram_plain(x1, x2, ls_p, eta_p)
+    Kp = rbf_gram_plain(x1_p, x2_p, ls_p, eta_p)
     torch.cuda.synchronize()
     rel = float((K - Kp).detach().abs().max()) / float(eta) ** 2
-    same = bool(torch.equal(K, K2))
-    msg = f"[kernel] {n}x{m} d={d}{' shared ls' if ls_shared else ''}: max|dK|/eta2 {rel:.3e} | two calls " \
-          f"bit-equal {same}"
+    same_calls = bool(torch.equal(K, K2))
+    msg = f"[kernel] {n}x{m} d={d}{' shared ls' if ls_shared else ''}{' x2 is x1' if same else ''}: max|dK|/eta2 " \
+          f"{rel:.3e} | two calls bit-equal {same_calls}"
     assert rel <= KERNEL_TOL, f"rbf_gram disagrees with plain at {n}x{m} d={d}: {rel}"
-    assert same, f"two rbf_gram calls differ at {n}x{m} d={d}"
+    assert same_calls, f"two rbf_gram calls differ at {n}x{m} d={d}"
     if grad:
         # a positive cotangent, drawn on the card
         gbar = torch.rand(n, m, generator=torch.Generator("cuda").manual_seed(d), device="cuda")
-        gk = torch.autograd.grad((K * gbar).sum(), (ls_k, eta_k))
-        gp = torch.autograd.grad((Kp * gbar).sum(), (ls_p, eta_p))
+        wrt_k, wrt_p = [ls_k, eta_k], [ls_p, eta_p]
+        if xgrad:
+            wrt_k += [x1_k] if same else [x1_k, x2_k]
+            wrt_p += [x1_p] if same else [x1_p, x2_p]
+        gk = torch.autograd.grad((K * gbar).sum(), wrt_k)
+        gp = torch.autograd.grad((Kp * gbar).sum(), wrt_p)
         torch.cuda.synchronize()
-        grel = max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max()) for a, b in zip(gk, gp))
+        grel = max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max()) for a, b in zip(gk[:2], gp[:2]))
         msg += f" | grad(ls,eta) max rel {grel:.3e}"
         assert grel <= GRAD_RTOL, f"rbf_gram gradient disagrees at {n}x{m} d={d}: {grel}"
+        if xgrad:
+            xrel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(gk[2:], gp[2:]))
+            msg += f" | grad({'x' if same else 'x1,x2'}) max|diff|/max|plain| {xrel:.3e}"
+            assert xrel <= GRAD_RTOL, f"rbf_gram x gradient disagrees at {n}x{m} d={d}: {xrel}"
     log(msg)
     return rel * float(eta) ** 2
 
@@ -464,6 +542,25 @@ def _profile_kernels(fn, calls):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+PROFILE_TRIES = 3
+
+
+def _rbf_kernels_per_call(fn, calls, label):
+    """The device operations of ``calls`` rbf_gram calls: every one the
+    kernel and ``calls`` of them. The profiler sometimes loses records (17
+    of 20, and 0 of 20, in runs where every other count held), so a short
+    record of the kernel alone is taken again, up to PROFILE_TRIES times;
+    any other operation, or more than ``calls``, fails at once."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        kernels = _profile_kernels(fn, calls)
+        assert len(kernels) <= calls and all("rbf_gram_kernel" in k for k, _ in kernels), \
+            f"rbf_gram at {label} did not run exactly one kernel per call: {kernels}"
+        if len(kernels) == calls:
+            return kernels
+        log(f"[kernel] profiler at {label}: {len(kernels)} of {calls} kernels recorded (try {attempt}), again")
+    raise AssertionError(f"rbf_gram at {label}: the profiler recorded fewer than {calls} kernels {PROFILE_TRIES} times")
+
+
 def phase2_kernel_vs_plain():
     shapes = [(640, 640), (1024, 1024), (5120, 5120), (5120, 10000), (37, 23)]
     max_abs = 0.0
@@ -477,18 +574,20 @@ def phase2_kernel_vs_plain():
         max_abs = max(max_abs, _rbf_check(n, m, 2, ls_shared=True, grad=small))
     for n, m in RBF_SPARSE_SHAPES:
         max_abs = max(max_abs, _rbf_check(n, m, 2))
+    for n, m in RBF_BO_SHAPES:
+        max_abs = max(max_abs, _rbf_check(n, m, 2, xgrad=True))
+    for n, m in RBF_SAME_SHAPES:
+        max_abs = max(max_abs, _rbf_check(n, m, 2, xgrad=True, same=True))
 
     # exactly one CUDA kernel per call (torch.profiler on the card), the
     # autograd route and a shared (expanded) lengthscale included
     for n, m, shared in ((1, 50_000, True), (5120, 10_000, False), (37, 23, False)):
         x1, x2, ls, eta = _inputs(n, m, 2, seed=1)
         ls = ls[:1].expand(2) if shared else ls.requires_grad_(True)
-        kernels = _profile_kernels(lambda: rbf_gram(x1, x2, ls, eta), 10)
+        kernels = _rbf_kernels_per_call(lambda: rbf_gram(x1, x2, ls, eta), 10, f"{n}x{m}")
         names = sorted({k for k, _ in kernels})
         log(f"[kernel] profiler, 10 calls at {n}x{m}{' shared ls' if shared else ' ls requiring grad'}: "
             f"{len(kernels)} CUDA kernels {names}")
-        assert len(kernels) == 10 and all("rbf_gram_kernel" in k for k, _ in kernels), \
-            f"rbf_gram at {n}x{m} did not run exactly one kernel per call: {kernels}"
 
     times = {}
     with torch.no_grad():
@@ -501,8 +600,7 @@ def phase2_kernel_vs_plain():
                 runs_p.append(_time_ms(plain, RBF_REPS))
                 runs_k.append(_time_ms(kern, RBF_REPS))
             k, p = float(np.median(runs_k)), float(np.median(runs_p))
-            prof = _profile_kernels(kern, 20)
-            assert len(prof) == 20, f"rbf_gram at {n}x{m}: {len(prof)} kernels in 20 calls"
+            prof = _rbf_kernels_per_call(kern, 20, f"{n}x{m}")
             dev = float(np.median([us for _, us in prof])) / 1e3
             bound, by = _rbf_bound(n, m, 2)
             assert min(k, dev) >= bound, f"rbf_gram at {n}x{m}: {k} / {dev} ms is under its bound {bound} ms"
@@ -1293,19 +1391,6 @@ def cholesky_seam(fn):
         linalg.safe_cholesky = orig
 
 
-def make_dense_problem(n, np_dtype):
-    """bench_dense50k.py's problem, rebuilt with numpy: same seed, same draws
-    in the same order. Returns the generator too: the coarse subsample is
-    its next draw."""
-    rng = np.random.default_rng(0)
-    X = rng.uniform(-2, 2, size=(n, 2)).astype(np_dtype)
-    y = (np.sin(1.3 * X[:, 0]) * np.cos(0.9 * X[:, 1]) + rng.normal(0, 0.1, n)).astype(np_dtype)
-    spec = GPSpec(terms=(GPTerm(suffix="total", kernel="ExpQuad"),), d_cont=2, ard=True)
-    sub = X[rng.choice(n, min(512, n), replace=False)]
-    la, lb = ls_prior_from_subsample(sub)
-    return spec, X, y, la, lb, rng
-
-
 def run_dense_campaign(device, dtype, n=DENSE_N, coarse_n=DENSE_COARSE_N, n_restarts=DENSE_RESTARTS,
                        coarse_iters=DENSE_COARSE_ITERS, polish_iters=DENSE_POLISH_ITERS, grid=GRID,
                        draw_grid=DENSE_DRAW_GRID, n_draws=DENSE_DRAWS, chol=None):
@@ -1837,7 +1922,326 @@ def phase11_laplace():
         f"GiB | value {float(value):.4f} | grad {[(k, v.tolist()) for k, v in grad.items()]}")
     assert np.isfinite(float(value)) and all(bool(torch.isfinite(v).all()) for v in grad.values()), \
         "the N = 16,384 Laplace value+grad is not finite"
-    return launches, secs, peak
+    return launches, secs, peak, p, r
+
+
+# ------------------------------------------------------------------
+# Phases 12-14: BO's acquisitions and the full-Bayes samplers
+# ------------------------------------------------------------------
+
+BO_N, BO_INDEP_N, BO_FIT_RESTARTS = 512, 256, 8
+# GP.propose's defaults (gumbi_tpu/models/gp.py:1785-1800): q, restarts, raw
+# q-batches, MC base samples, L-BFGS iterations, baseline rows
+BO_Q, BO_NUM_RESTARTS, BO_RAW, BO_MC, BO_MAXITER, BO_BASELINE = 4, 10, 512, 256, 100, 64
+# |f32 − f64 (plain path)| of the acquisition at the candidate, in log units,
+# per run: about twice each run's reading on one H100 (8.14e-4, 1.76e-4,
+# 3.38e-4; PERF.md §6), and no more than 1e-3. What 12a keeps is the f32
+# cross-Gram's rounding, which the mean's sum Ks·α amplifies: with Ks in f64
+# as well the gap is 1.1e-6 (tools/probe_sampler_precision.py).
+ACQ_F64_TOL = {"qLogNEI q=4": 1e-3, "qLogNEHVI-2d q=2": 4e-4, "qLogNEHVI-MC q=1 (3 outputs)": 7e-4}
+# The best raw value comes from the batched sweep and the optimum from
+# single-block evaluations of the same function, which at f32 may differ in
+# their last bits (values are O(1) in log units).
+ACQ_RAW_TOL = 1e-4
+# GP.sample's defaults (gp.py:1502-1540)
+CHEES_CHAINS, CHEES_TUNE, CHEES_DRAWS, CHEES_TARGET, CHEES_MAX_LEAP = 16, 500, 500, 0.75, 256
+# sampler='hmc' at its defaults but tune/draws, cut from 500/500 for time (PERF.md §4)
+HMC_CHAINS, HMC_TUNE, HMC_DRAWS, HMC_LEAP, HMC_TARGET = 2, 100, 100, 32, 0.8
+LS_MEDIAN_RTOL = 0.35  # tests/test_extras.py's ChEES-against-HMC median rule
+CHEES_ACCEPT = (0.5, 0.95)
+HMC_MIN_ACCEPT = 0.5  # the chains move: a stalled chain's medians equal its start and would pass the median rule
+# GPC.sample(latent=True)'s defaults (gpc.py:206-275) and predict_proba's max_draws (gpc.py:398)
+ESS_CHAINS, ESS_TUNE, ESS_DRAWS, ESS_SWEEPS, ESS_TARGET, ESS_PROBA_DRAWS = 2, 500, 500, 4, 0.3, 64
+ESS_ACCEPT = (0.1, 0.6)
+ESS_ACC_SLACK = 0.05  # line accuracy at most this far below phase 11's Laplace accuracy
+
+
+def _bo_surface(X, j):
+    """Output j ≥ 1 of the BO problems beside make_dense_problem's y:
+    sin(1.3·x₀ + 0.8·j)·cos(0.9·x₁ − 0.5·j) + N(0, 0.1) from default_rng(j)."""
+    noise = np.random.default_rng(j).normal(0, 0.1, X.shape[0])
+    return (np.sin(1.3 * X[:, 0] + 0.8 * j) * np.cos(0.9 * X[:, 1] - 0.5 * j) + noise).astype(X.dtype)
+
+
+def _fit_and_cache(spec, X, xk, y, la, lb):
+    """fit_gp_map (8 restarts from initial_params seed 0, f32 on the card);
+    returns the fitted parameters, ``state(dtype)`` (those parameters and
+    their posterior cache at f32, the hand kernel, or f64, the plain path)
+    and the fit's aux."""
+    u0s = initial_params(spec, la, lb, n_restarts=BO_FIT_RESTARTS, seed=0, dtype=torch.float32, device="cuda")
+    params, _, aux = fit_gp_map(spec, X, xk, y, la, lb, u0s, device="cuda")
+
+    def state(dtype):
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")  # noqa: E731
+        p = {k: v.to(dtype) for k, v in params.items()}
+        with torch.no_grad():
+            return p, posterior_cache(spec, p, t(X), torch.as_tensor(xk, device="cuda").long(), t(y))
+
+    return params, state, aux
+
+
+def _bo_rows(n, d_out):
+    """Output-major level column: n rows of each output."""
+    return torch.as_tensor(np.repeat(np.arange(d_out), n).reshape(-1, 1), device="cuda")
+
+
+def _bo_run(label, acq32, acq64, optimize, X_raw, lo, hi):
+    """One acquisition campaign: the raw sweep timed alone (a warm call on the
+    same starts), then, with the launch counts at 0, the whole optimize (raw
+    sweep, top-k, L-BFGS restarts); checks the candidate, its value and the
+    f32 value against the f64 plain path at the candidate (the run's
+    ACQ_F64_TOL)."""
+    with torch.no_grad():
+        raw_sweep(acq32, X_raw[:16])
+    _sync("cuda")
+    t0 = time.perf_counter()
+    raw_vals = raw_sweep(acq32, X_raw)
+    _sync("cuda")
+    raw_s = time.perf_counter() - t0
+    RbfGram.launches = 0
+    before = collections.Counter(RBF_SHAPES.get("bo", {}))
+    with count_rbf_shapes("bo") as shapes:
+        t1 = time.perf_counter()
+        x, value, aux = optimize()
+        _sync("cuda")
+        total_s = time.perf_counter() - t1
+    launches = RbfGram.launches
+    by_shape = dict(collections.Counter(shapes) - before)
+    value = float(value)
+    best_raw = float(aux["raw_values"].max())
+    with torch.no_grad():
+        v32, v64 = float(acq32(x)), float(acq64(x.double()))
+    tol = ACQ_F64_TOL[label]
+    log(f"[bo] {label}: raw sweep {raw_s:.3f} s ({X_raw.shape[0]} q-batches, alone) | optimize {total_s:.3f} s "
+        f"(sweep + restarts; restarts ~{total_s - raw_s:.3f} s) | L-BFGS iterations per restart "
+        f"{aux['iters'].tolist()} | value {value:.6f} (best raw {best_raw:.6f}) | at the candidate f32 {v32:.6f} "
+        f"f64 {v64:.6f} |diff| {abs(v32 - v64):.2e} (tol {tol}) | candidates {x.tolist()} | rbf_gram launches "
+        f"{launches} by shape {by_shape}")
+    assert bool(torch.isfinite(raw_vals).all()) and bool(torch.isfinite(aux["raw_values"]).all()), \
+        f"{label}: non-finite raw acquisition values"
+    assert bool(((x >= lo) & (x <= hi)).all()), f"{label}: candidates outside the box"
+    assert np.isfinite(value) and value >= best_raw - ACQ_RAW_TOL, f"{label}: value {value} below best raw {best_raw}"
+    assert abs(v32 - v64) <= tol, f"{label}: f32 and f64 acquisition differ by {abs(v32 - v64)}"
+    assert launches > 0 and sum(by_shape.values()) == launches, f"{label}: rbf_gram launches {launches}"
+    return dict(label=label, raw_s=raw_s, total_s=total_s, iters=aux["iters"].tolist(), value=value,
+                launches=launches, by_shape=by_shape, x=x)
+
+
+def phase12_bo():
+    """GP.propose's ops path at its defaults, three runs: qLogNEI (q = 4) on
+    make_dense_problem at N = 512; qLogNEHVI (q = 2) on a 2-output Hadamard
+    LMC over the same locations; QMC-box qLogNEHVI (q = 1) over three
+    Independent fits at N = 256."""
+    f32 = dict(dtype=torch.float32, device="cuda")
+    zeros = lambda k: torch.zeros((k, 0), dtype=torch.long, device="cuda")  # noqa: E731
+    spec, X, y, la, lb, _ = make_dense_problem(BO_N, np.float32)
+    lo, hi = torch.as_tensor(X.min(0), **f32), torch.as_tensor(X.max(0), **f32)
+    base = X[np.random.default_rng(0).choice(BO_N, BO_BASELINE, replace=False)]
+    runs = []
+
+    # (a) qLogNEI, one output
+    t0 = time.perf_counter()
+    params, state, fit_aux = _fit_and_cache(spec, X, np.zeros((BO_N, 0)), y, la, lb)
+    log(f"[bo] qLogNEI fit N={BO_N}: {time.perf_counter() - t0:.3f} s, iterations {fit_aux['iters'].tolist()}, "
+        f"ls {params['ls_total'].tolist()} eta {float(params['η_total']):.4f} sigma {float(params['σ']):.4f}")
+
+    def nei(dtype):
+        p, c = state(dtype)
+        xb = torch.as_tensor(base, dtype=dtype, device="cuda")
+        bs = torch.as_tensor(sobol_normal(BO_MC, BO_Q + BO_BASELINE, seed=0), dtype=dtype, device="cuda")
+        args = (p, c, zeros(BO_Q), xb, zeros(BO_BASELINE), bs)
+        return (lambda Xc: qlog_nei(spec, *args[:2], Xc, *args[2:])), args
+
+    acq32, args32 = nei(torch.float32)
+    acq64, _ = nei(torch.float64)
+    X_raw = torch.as_tensor(sobol_uniform(BO_RAW * BO_Q, 2, seed=0).reshape(BO_RAW, BO_Q, 2), **f32) * (hi - lo) + lo
+    runs.append(_bo_run("qLogNEI q=4", acq32, acq64, lambda: optimize_qlog_nei(
+        spec, *args32, X_raw, lo, hi, num_restarts=BO_NUM_RESTARTS, maxiter=BO_MAXITER, return_aux=True),
+        X_raw, lo, hi))
+    dense = dict(spec=spec, X=X, y=y, la=la, lb=lb, params=params)
+
+    # (b) qLogNEHVI, 2 outputs: a Hadamard LMC (rank-1 coregion over the output column)
+    cg = CoregTerm(name="Parameter", col=0, d_out=2, rank=1)
+    spec2 = GPSpec(terms=(GPTerm(suffix="total", kernel="ExpQuad", coregs=(cg,)),), d_cont=2, ard=True)
+    ys = [y, _bo_surface(X, 1)]
+    t0 = time.perf_counter()
+    params2, state2, fit_aux = _fit_and_cache(spec2, np.concatenate([X, X]), np.repeat([0, 1], BO_N)[:, None],
+                                              np.concatenate(ys), la, lb)
+    log(f"[bo] qLogNEHVI-2d fit N={2 * BO_N} (2 outputs): {time.perf_counter() - t0:.3f} s, iterations "
+        f"{fit_aux['iters'].tolist()}")
+    q2 = 2
+    ref2 = [float(h.min()) - 1e-3 for h in ys]
+
+    def nehvi2(dtype):
+        p, c = state2(dtype)
+        xb = torch.as_tensor(np.concatenate([base, base]), dtype=dtype, device="cuda")
+        bs = torch.as_tensor(sobol_normal(BO_MC, 2 * (q2 + BO_BASELINE), seed=0), dtype=dtype, device="cuda")
+        return lambda Xc: qlog_nehvi_2d(spec2, p, c, torch.cat([Xc, Xc], -2), _bo_rows(q2, 2), xb,
+                                        _bo_rows(BO_BASELINE, 2), bs, ref2)
+
+    acq32 = nehvi2(torch.float32)
+    X_raw = torch.as_tensor(sobol_uniform(BO_RAW * q2, 2, seed=0).reshape(BO_RAW, q2, 2), **f32) * (hi - lo) + lo
+    runs.append(_bo_run("qLogNEHVI-2d q=2", acq32, nehvi2(torch.float64), lambda: optimize_acqf(
+        acq32, (lo, hi), q=q2, num_restarts=BO_NUM_RESTARTS, raw_samples=BO_RAW, seed=0, maxiter=BO_MAXITER,
+        return_aux=True), X_raw, lo, hi))
+
+    # (c) qLogNEHVI by QMC-box integration, 3 outputs from three Independent fits
+    spec3, X3, _, la3, lb3, _ = make_dense_problem(BO_INDEP_N, np.float32)
+    ys3 = [make_dense_problem(BO_INDEP_N, np.float32)[2]] + [_bo_surface(X3, j) for j in (1, 2)]
+    t0 = time.perf_counter()
+    fits = [_fit_and_cache(spec3, X3, np.zeros((BO_INDEP_N, 0)), yj, la3, lb3) for yj in ys3]
+    log(f"[bo] qLogNEHVI-MC fits: 3 x N={BO_INDEP_N}, {time.perf_counter() - t0:.3f} s")
+    lo3, hi3 = torch.as_tensor(X3.min(0), **f32), torch.as_tensor(X3.max(0), **f32)
+    base3 = X3[np.random.default_rng(0).choice(BO_INDEP_N, BO_BASELINE, replace=False)]
+    ref3 = [float(h.min()) - 1e-3 for h in ys3]
+
+    def nehvi_mc(dtype):
+        states = [f[1](dtype) for f in fits]
+        fn = make_indep_sample_fn(spec3, [s_[0] for s_ in states], [s_[1] for s_ in states], out_col_idx=0)
+        xb = torch.as_tensor(np.concatenate([base3] * 3), dtype=dtype, device="cuda")
+        bs = torch.as_tensor(sobol_normal(BO_MC, 3 * (1 + BO_BASELINE), seed=0), dtype=dtype, device="cuda")
+        u_box = torch.as_tensor(sobol_uniform(512, 3, seed=1), dtype=dtype, device="cuda")
+        return lambda Xc: qlog_nehvi_mc(spec3, None, None, torch.cat([Xc] * 3, -2), _bo_rows(1, 3), xb,
+                                        _bo_rows(BO_BASELINE, 3), bs, ref3, u_box, 3, sample_fn=fn)
+
+    acq32 = nehvi_mc(torch.float32)
+    X_raw = torch.as_tensor(sobol_uniform(BO_RAW, 2, seed=0).reshape(BO_RAW, 1, 2), **f32) * (hi3 - lo3) + lo3
+    runs.append(_bo_run("qLogNEHVI-MC q=1 (3 outputs)", acq32, nehvi_mc(torch.float64), lambda: optimize_acqf(
+        acq32, (lo3, hi3), q=1, num_restarts=BO_NUM_RESTARTS, raw_samples=BO_RAW, seed=0, maxiter=BO_MAXITER,
+        return_aux=True), X_raw, lo3, hi3))
+    return runs, dense
+
+
+def _draws_finite(samples):
+    return all(bool(torch.isfinite(v).all()) for v in samples.values())
+
+
+def _natural_median(samples):
+    """Each parameter's median over chains and draws, in natural space (numpy)."""
+    return {k: np.median(v.double().cpu().numpy().reshape(-1, *v.shape[2:]), axis=0)
+            for k, v in constrain(samples).items()}
+
+
+def phase13_samplers(dense):
+    """GP.sample's ops path on phase 12a's problem and MAP fit: ChEES (16
+    chains batched, tune 500, draws 500), then fixed-length HMC (2 chains,
+    32 leapfrog steps, tune/draws 100/100), both on the chain-batched exact
+    objective; checks, and one batched 16-chain value+grad timed with each
+    factor at the seam."""
+    spec, la, lb = dense["spec"], dense["la"], dense["lb"]
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")  # noqa: E731
+    xc, y, la_t, lb_t = t(dense["X"]), t(dense["y"]), t(la), t(lb)
+    xk = torch.zeros((BO_N, 0), dtype=torch.long, device="cuda")
+    calls = [0]
+
+    def logp(u):
+        calls[0] += 1
+        return -map_neg_logp_chains(spec, u, xc, xk, y, la_t, lb_t)
+
+    q0 = unconstrain(dense["params"])
+    out = {}
+    for name, sampler, kw in (
+        ("chees", chees_sample, dict(draws=CHEES_DRAWS, tune=CHEES_TUNE, chains=CHEES_CHAINS,
+                                     target_accept=CHEES_TARGET, max_leapfrog=CHEES_MAX_LEAP)),
+        ("hmc", hmc_sample, dict(draws=HMC_DRAWS, tune=HMC_TUNE, chains=HMC_CHAINS, n_leapfrog=HMC_LEAP,
+                                 target_accept=HMC_TARGET)),
+    ):
+        calls[0] = 0
+        RbfGram.launches = 0
+        with count_rbf_shapes(name) as shapes:
+            _sync("cuda")
+            t0 = time.perf_counter()
+            samples, stats = sampler(logp, q0, torch.Generator(device="cuda").manual_seed(0), chain_batched=True, **kw)
+            _sync("cuda")
+            secs = time.perf_counter() - t0
+        iters = kw["tune"] + kw["draws"]
+        leaps = stats["n_leapfrog"] if name == "chees" else np.full(iters, HMC_LEAP)
+        out[name] = dict(samples=samples, stats=stats, secs=secs, launches=RbfGram.launches, calls=calls[0],
+                         shapes=dict(shapes), median=_natural_median(samples))
+        extra = (f" | adapted step {float(stats['step_size']):.4f}, T {float(stats['trajectory_length']):.4f}"
+                 if name == "chees" else "")
+        log(f"[{name}] {kw['chains']} chains, tune {kw['tune']} draws {kw['draws']}: {secs:.3f} s, "
+            f"{secs / iters * 1e3:.2f} ms/iteration | leapfrog steps per iteration mean {leaps.mean():.2f} max "
+            f"{leaps.max()} | {calls[0]} batched objective calls ({secs / calls[0] * 1e3:.3f} ms each) | mean "
+            f"acceptance {float(stats['mean_accept']):.4f}{extra} | posterior medians "
+            f"{ {k: np.round(v, 4).tolist() for k, v in out[name]['median'].items()} } | rbf_gram launches "
+            f"{RbfGram.launches} by shape {dict(shapes)}")
+        assert calls[0] == 1 + int(leaps.sum()), f"{name}: {calls[0]} objective calls for {int(leaps.sum())} steps"
+        assert _draws_finite(samples), f"{name}: non-finite draws"
+        assert RbfGram.launches > 0 and sum(shapes.values()) == RbfGram.launches, f"{name}: rbf_gram launches"
+
+    c, h = out["chees"], out["hmc"]
+    acc = float(c["stats"]["mean_accept"])
+    assert CHEES_ACCEPT[0] <= acc <= CHEES_ACCEPT[1], f"ChEES mean acceptance {acc}"
+    assert float(h["stats"]["mean_accept"]) >= HMC_MIN_ACCEPT, f"HMC mean acceptance {float(h['stats']['mean_accept'])}"
+    med_c, med_h = c["median"]["ls_total"], h["median"]["ls_total"]
+    assert np.allclose(med_c, med_h, rtol=LS_MEDIAN_RTOL, atol=0.0), f"lengthscale medians {med_c} vs {med_h}"
+    u_med = unconstrain({k: torch.as_tensor(v, dtype=torch.float64, device="cuda") for k, v in c["median"].items()})
+    with torch.no_grad():
+        f32 = float(map_neg_logp(spec, {k: v.float() for k, v in u_med.items()}, xc, xk, y, la_t, lb_t))
+        f64 = float(map_neg_logp(spec, u_med, xc.double(), xk, y.double(), la_t.double(), lb_t.double()))
+    per_pt = abs(f32 - f64) / BO_N
+    log(f"[chees] neg_logp at the posterior median: f32 {f32:.4f} | f64 {f64:.4f} | |diff| {per_pt:.2e} nats/pt "
+        f"(tol {BASIN_TOL}) | ls medians ChEES {med_c.tolist()} HMC {med_h.tolist()} (rtol {LS_MEDIAN_RTOL})")
+    assert per_pt <= BASIN_TOL, f"ChEES median: f32 and f64 objectives differ by {per_pt} nats/pt"
+
+    # one batched value+grad of all 16 chains, library factor and hand factor at the seam
+    u_last = {k: v[:, -1].detach() for k, v in c["samples"].items()}
+
+    def objective(u):
+        return map_neg_logp_chains(spec, u, xc, xk, y, la_t, lb_t).sum()
+
+    vg = {"library": _eval_breakdown(f"chees {CHEES_CHAINS}-chain objective, library factor", objective, u_last)[0]}
+    with cholesky_seam(hopper_chol.seam_cholesky):
+        vg["hand"], _ = _time_host(lambda: _value_and_grad(objective, u_last), 20)
+    log(f"[chees] one batched value+grad, {CHEES_CHAINS} chains at N={BO_N} at the last draws: library factor "
+        f"{vg['library'] * 1e3:.3f} ms | hand factor (hopper_chol.seam_cholesky) {vg['hand'] * 1e3:.3f} ms")
+    return {k: (v["launches"], v["secs"]) for k, v in out.items()}, vg
+
+
+def phase14_ess(p, laplace):
+    """GPC.sample(latent=True)'s ops path on phase 11's problem from its
+    Laplace fit (2 chains batched, tune 500, draws 500, 4 ESS sweeps), then
+    latent_conditional_proba with 64 subsampled draws on the line."""
+    spec = fitc_spec("bernoulli")
+    RbfGram.launches = 0
+    _peak_reset("cuda")
+    with count_rbf_shapes("ess") as shapes:
+        _sync("cuda")
+        t0 = time.perf_counter()
+        us, fs, stats = ess_gpc_sample(spec, laplace["u_best"], p["xc"], p["xk"], p["yb"], p["la"], p["lb"],
+                                       torch.Generator(device="cuda").manual_seed(0), draws=ESS_DRAWS, tune=ESS_TUNE,
+                                       chains=ESS_CHAINS, ess_sweeps=ESS_SWEEPS, target_accept=ESS_TARGET)
+        _sync("cuda")
+        t1 = time.perf_counter()
+        s_all = ESS_CHAINS * ESS_DRAWS
+        idx = torch.as_tensor(np.random.default_rng(0).choice(s_all, ESS_PROBA_DRAWS, replace=False), device="cuda")
+        params = {k: v.reshape(s_all, *v.shape[2:])[idx] for k, v in constrain(us).items()}
+        with torch.no_grad():
+            prob = latent_conditional_proba(spec, params, fs.reshape(s_all, -1)[idx], p["xc"], p["xk"], p["line"],
+                                            p["line_k"])
+        _sync("cuda")
+        t2 = time.perf_counter()
+    launches, peak = RbfGram.launches, _peak_gib("cuda")
+    trials = stats["ess_trials"]
+    drawn = trials[:, ESS_TUNE:]
+    acc = _accuracy(p, prob)
+    mh = float(stats["accept_rate"].mean())
+    iters = ESS_TUNE + ESS_DRAWS
+    log(f"[ess] N={LAPLACE_N}, {ESS_CHAINS} chains, tune {ESS_TUNE} draws {ESS_DRAWS}, {ESS_SWEEPS} sweeps: sampler "
+        f"{t1 - t0:.3f} s ({(t1 - t0) / iters * 1e3:.2f} ms/iteration) | proba ({ESS_PROBA_DRAWS} draws) "
+        f"{t2 - t1:.3f} s | trials per ESS step mean {float(trials.float().mean()):.2f} max {int(trials.max())} "
+        f"(after tuning mean {float(drawn.float().mean()):.2f} max {int(drawn.max())}) | host syncs "
+        f"{stats['host_syncs']} ({stats['host_syncs'] / iters:.1f} per iteration) | MH acceptance {mh:.4f} per chain "
+        f"{stats['accept_rate'].tolist()} step {stats['step_size'].tolist()} | line accuracy {acc:.3f} (Laplace "
+        f"{laplace['accuracy']:.3f}) | peak {peak:.2f} GiB | rbf_gram launches {launches} by shape {dict(shapes)}")
+    assert _draws_finite(us) and bool(torch.isfinite(fs).all()) and bool(torch.isfinite(prob).all()), \
+        "ESS: non-finite draws or probabilities"
+    assert ESS_ACCEPT[0] <= mh <= ESS_ACCEPT[1], f"ESS: MH acceptance {mh}"
+    assert int(drawn.max()) < 200, "ESS: a slice step hit the 200-trial cap after tuning"
+    assert acc >= laplace["accuracy"] - ESS_ACC_SLACK, f"ESS line accuracy {acc} vs Laplace {laplace['accuracy']}"
+    assert launches > 0 and sum(shapes.values()) == launches, f"ESS: rbf_gram launches {launches}"
+    return launches, t2 - t0
 
 
 def _rbf_bound(n, m, d):
@@ -1875,7 +2279,11 @@ def main():
     p, fitc_launches = phase9_fitc()
     fitc_laplace_launches = phase10_fitc_laplace(p)
     del p
-    laplace_launches, _, _ = phase11_laplace()
+    laplace_launches, _, _, lap_p, lap_r = phase11_laplace()
+    bo_runs, dense = phase12_bo()
+    sampler_runs, _ = phase13_samplers(dense)
+    ess_launches, _ = phase14_ess(lap_p, lap_r)
+    del lap_p
     sms, mhz, peak = _fp32_peak_of_card()
     log(f"[card] {sms} SMs at max {mhz:.0f} MHz: FP32 FMA peak {peak / 1e12:.1f} TFLOP/s "
         f"(bounds use the data sheet's {FP32_PEAK / 1e12:.0f})")
@@ -1890,10 +2298,13 @@ def main():
         {"name": "rbf_gram", "route": "cuda", "source": "gumbi_tpu_torch/csrc/rbf_gram.cu",
          "replaces": "gumbi_tpu/ops/pallas_kernels.py:111",
          "launches": kron_launches["total"] + iter_launches["rbf_gram"] + dense_launches["rbf_gram"]
-         + fitc_launches + fitc_laplace_launches + laplace_launches,
+         + fitc_launches + fitc_laplace_launches + laplace_launches + sum(r["launches"] for r in bo_runs)
+         + sampler_runs["chees"][0] + sampler_runs["hmc"][0] + ess_launches,
          "launches_by_path": {"kronecker": kron_launches["total"], "iterative": iter_launches["rbf_gram"],
                               "dense": dense_launches["rbf_gram"], "fitc": fitc_launches,
-                              "fitc_laplace": fitc_laplace_launches, "laplace": laplace_launches},
+                              "fitc_laplace": fitc_laplace_launches, "laplace": laplace_launches,
+                              "bo": sum(r["launches"] for r in bo_runs), "chees": sampler_runs["chees"][0],
+                              "hmc": sampler_runs["hmc"][0], "ess": ess_launches},
          "launches_by_path_and_shape": {path: dict(c) for path, c in RBF_SHAPES.items()},
          "max_abs_err": rbf_max_abs, "ms": k_ms, "plain_ms": p_ms, "bound_ms": rb, "bound_fp32_ms": rb,
          "bound_by": rby,

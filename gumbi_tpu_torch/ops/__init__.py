@@ -1,5 +1,18 @@
 """PyTorch/CUDA compute core: kernels, likelihoods, optimizers, posteriors."""
 
+from .acquisition import (  # noqa: F401
+    expected_improvement,
+    hv_dominated_mc,
+    optimize_acqf,
+    optimize_qlog_nei,
+    qlog_nehvi_2d,
+    qlog_nehvi_mc,
+    qlog_nei,
+    sobol_normal,
+    sobol_uniform,
+    upper_confidence_bound,
+)
+from .ess import bernoulli_loglik, ess_gpc_sample, latent_conditional_proba  # noqa: F401
 from .fitc import (  # noqa: F401
     fitc_draw_samples,
     fitc_mll,
@@ -15,6 +28,7 @@ from .fitc_laplace import (  # noqa: F401
     fitc_laplace_neg_logp,
     fitc_laplace_predict,
 )
+from .hmc import chees_sample, hmc_sample  # noqa: F401
 from .hopper_chol import BlockedChol, cholesky_plain, hopper_cholesky, seam_cholesky  # noqa: F401
 from .hopper_kernels import (  # noqa: F401
     FUSABLE_KERNELS,
@@ -66,6 +80,7 @@ from .mll import (  # noqa: F401
     cholesky_factor,
     map_neg_logp,
     map_neg_logp_blocked,
+    map_neg_logp_chains,
     mll,
 )
 from .optimize import (  # noqa: F401
@@ -92,6 +107,7 @@ from .priors import (  # noqa: F401
     fit_inverse_gamma,
     initial_params,
     log_prior,
+    log_prior_chains,
     ls_prior_params,
     param_info,
     unconstrain,

@@ -21,11 +21,12 @@ import torch
 from . import linalg
 from .kernels import GPSpec, gram, noise_diag
 from .linalg import cho_solve, quad_and_logdet
-from .priors import constrain, log_prior
+from .priors import constrain, log_prior, log_prior_chains
 
 __all__ = [
     "mll",
     "map_neg_logp",
+    "map_neg_logp_chains",
     "map_neg_logp_blocked",
     "blocked_gaussian_logp",
     "cholesky_factor",
@@ -68,7 +69,7 @@ def _gaussian_logp_from_K(Kn, y, mask=None):
         y = y * mask
         n = mask.sum()
     else:
-        n = y.shape[0]
+        n = y.shape[-1]
     quad, logdet = quad_and_logdet(Kn, y)
     return -0.5 * (quad + logdet + n * math.log(2.0 * math.pi))
 
@@ -95,6 +96,30 @@ def map_neg_logp(
     params = constrain(uparams)
     Kn = _noisy_gram(spec, params, xc, xk, jitter, mask, noise_mult)
     total = _gaussian_logp_from_K(Kn, y, mask) + log_prior(spec, uparams, ls_alpha, ls_beta)
+    return _finite_or_inf(total)
+
+
+def map_neg_logp_chains(
+    spec: GPSpec, uparams, xc, xk, y, ls_alpha, ls_beta, jitter=DEFAULT_JITTER, mask=None,
+    noise_mult=None,
+):
+    """:func:`map_neg_logp` at C points at once: every tensor of ``uparams``
+    carries a leading chain axis; returns (C,).
+
+    The samplers' counterpart of the reference's ``vmap`` over chains. Each
+    chain's Gram is its own :func:`.kernels.gram` call (the hand ``rbf_gram``
+    is an autograd ``Function`` launching a CUDA kernel, which
+    ``torch.func.vmap`` cannot batch); the C Grams are stacked into one
+    (C, N, N) batch for one batched factorization (at the
+    ``linalg.safe_cholesky`` seam) and batched solves, so a value+grad of all
+    chains is one call.
+    """
+    c = next(iter(uparams.values())).shape[0]
+    params = constrain(uparams)
+    Kn = torch.stack(
+        [_noisy_gram(spec, {k: v[i] for k, v in params.items()}, xc, xk, jitter, mask, noise_mult) for i in range(c)]
+    )
+    total = _gaussian_logp_from_K(Kn, y.expand(c, -1), mask) + log_prior_chains(spec, uparams, ls_alpha, ls_beta)
     return _finite_or_inf(total)
 
 

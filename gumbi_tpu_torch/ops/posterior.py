@@ -164,7 +164,10 @@ def draw_samples(
 
 def joint_draws(mean, cov, prior_diag, jitter, generator=None, n_samples=1, eps=None):
     """``mean + eps·Lᵀ`` with L = chol(cov + floor·I), shape (n_samples, M):
-    the draws of the sparse and Laplace posteriors.
+    the draws of the sparse and Laplace posteriors, and the acquisitions'
+    joint samples. Leading batch axes of ``mean`` (..., M), ``cov``
+    (..., M, M) and ``prior_diag`` (..., M) give (..., n_samples, M), each
+    batch entry with its own floor.
 
     floor = max(jitter, M·eps_dtype·mean(prior_diag)), the relative rule of
     ``fitc._stabilized_kuu``: the reference's jitter wherever it clears the
@@ -176,9 +179,9 @@ def joint_draws(mean, cov, prior_diag, jitter, generator=None, n_samples=1, eps=
     ``eps`` (n_samples, M) is the standard-normal block, or it comes from
     ``generator`` (the reference draws it from a JAX key).
     """
-    m = cov.shape[0]
-    floor = torch.clamp(m * torch.finfo(cov.dtype).eps * prior_diag.mean(), min=jitter)
-    L = linalg.cholesky_nan(cov + floor * torch.eye(m, dtype=cov.dtype, device=cov.device))
+    m = cov.shape[-1]
+    floor = torch.clamp(m * torch.finfo(cov.dtype).eps * prior_diag.mean(-1), min=jitter)
+    L = linalg.cholesky_nan(cov + floor[..., None, None] * torch.eye(m, dtype=cov.dtype, device=cov.device))
     if eps is None:
         eps = torch.randn((n_samples, m), dtype=mean.dtype, device=mean.device, generator=generator)
-    return mean[None, :] + eps @ L.T
+    return mean[..., None, :] + eps @ L.mT

@@ -36,6 +36,7 @@ __all__ = [
     "constrain",
     "unconstrain",
     "log_prior",
+    "log_prior_chains",
     "initial_params",
     "fit_inverse_gamma",
     "ls_prior_params",
@@ -126,15 +127,10 @@ def _logp_exponential(x, lam):
     return math.log(lam) - lam * x
 
 
-def log_prior(spec: GPSpec, uparams: dict, ls_alpha, ls_beta) -> torch.Tensor:
-    """Total prior log-density in unconstrained space (Jacobians included).
-
-    ``ls_alpha``/``ls_beta`` are per-lengthscale InverseGamma parameters
-    (shape (n_ls,)), produced by :func:`ls_prior_params`.
-    """
-    info = param_info(spec)
-    total = 0.0
-    for name, meta in info.items():
+def _log_prior_terms(spec: GPSpec, uparams: dict, ls_alpha, ls_beta):
+    """(log-density, unconstrained value, positive) of each hyperparameter,
+    elementwise over its entries."""
+    for name, meta in param_info(spec).items():
         u = uparams[name]
         x = torch.exp(u) if meta.positive else u
         if meta.prior == "invgamma":
@@ -153,9 +149,33 @@ def log_prior(spec: GPSpec, uparams: dict, ls_alpha, ls_beta) -> torch.Tensor:
             lp = _logp_exponential(x, 1.0)
         else:  # pragma: no cover
             raise ValueError(f"Unknown prior {meta.prior}")
+        yield lp, u, meta.positive
+
+
+def log_prior(spec: GPSpec, uparams: dict, ls_alpha, ls_beta) -> torch.Tensor:
+    """Total prior log-density in unconstrained space (Jacobians included).
+
+    ``ls_alpha``/``ls_beta`` are per-lengthscale InverseGamma parameters
+    (shape (n_ls,)), produced by :func:`ls_prior_params`.
+    """
+    total = 0.0
+    for lp, u, positive in _log_prior_terms(spec, uparams, ls_alpha, ls_beta):
         total = total + lp.sum()
-        if meta.positive:
+        if positive:
             total = total + u.sum()  # log|dx/du| for x = exp(u)
+    return total
+
+
+def log_prior_chains(spec: GPSpec, uparams: dict, ls_alpha, ls_beta) -> torch.Tensor:
+    """:func:`log_prior` of C points at once: every tensor of ``uparams``
+    carries a leading chain axis; returns (C,), each entry summed as
+    :func:`log_prior` sums one point."""
+    total = 0.0
+    for lp, u, positive in _log_prior_terms(spec, uparams, ls_alpha, ls_beta):
+        c = u.shape[0]
+        total = total + lp.reshape(c, -1).sum(1)
+        if positive:
+            total = total + u.reshape(c, -1).sum(1)
     return total
 
 

@@ -1,8 +1,10 @@
-"""The problem of ``benchmarks/bench_fitc50k.py``, rebuilt with numpy.
+"""The problems of ``benchmarks/bench_fitc50k.py`` and
+``benchmarks/bench_dense50k.py``, rebuilt with numpy.
 
-Shared by ``chip_smoke.py`` (phases 9-11), ``probe_laplace_precision.py``
-and the port's tests: the same seed gives the same rows, labels, inducing
-points and lengthscale prior on any device and at any dtype.
+Shared by ``chip_smoke.py`` (phases 8-14), ``probe_laplace_precision.py``,
+``probe_sampler_precision.py`` and the port's tests: the same seed gives the
+same rows, labels, inducing points and lengthscale prior on any device and
+at any dtype.
 """
 
 from __future__ import annotations
@@ -57,6 +59,19 @@ def make_fitc_problem(n, device, dtype, seed=0, n_u=FITC_NU, kmeans_rows=FITC_KM
     return dict(xc=t(X), xk=zeros(n), y=t(y), yb=t((y > 0).astype(np_dtype)), xu_c=t(Xu), xu_k=zeros(len(Xu)),
                 la=la, lb=lb, line=t(np.column_stack([g, np.zeros_like(g)])), line_k=zeros(FITC_LINE),
                 g=g, kmeans_s=kmeans_s)
+
+
+def make_dense_problem(n, np_dtype):
+    """bench_dense50k.py's problem, rebuilt with numpy: same seed, same draws
+    in the same order. Returns the generator too: the coarse subsample is
+    its next draw."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-2, 2, size=(n, 2)).astype(np_dtype)
+    y = (np.sin(1.3 * X[:, 0]) * np.cos(0.9 * X[:, 1]) + rng.normal(0, 0.1, n)).astype(np_dtype)
+    spec = GPSpec(terms=(GPTerm(suffix="total", kernel="ExpQuad"),), d_cont=2, ard=True)
+    sub = X[rng.choice(n, min(512, n), replace=False)]
+    la, lb = ls_prior_from_subsample(sub)
+    return spec, X, y, la, lb, rng
 
 
 def problem_at(p, dtype):

@@ -12,6 +12,8 @@ import torch
 __all__ = [
     "default_model_dtype",
     "resolve_device",
+    "TorchStream",
+    "ravel_tree",
     "nc_normal",
     "nc_normal_logp",
     "sc_exponential",
@@ -48,6 +50,58 @@ def resolve_device(device=None, ref=None) -> torch.device:
             "is not available here; pass device='cpu' (or CPU tensors) to run on the CPU"
         )
     return device
+
+
+class TorchStream:
+    """Standard-normal and uniform draws from one ``torch.Generator``, called
+    the way the reference walks its JAX key tree.
+
+    The samplers are written against this interface: ``split(n)`` gives n
+    streams (``key, k1, k2 = jax.random.split(key, 3)``), ``split_chains(n)``
+    gives one stream with a leading chain axis (``jax.random.split(key, n)``
+    mapped over by ``vmap``), ``fold_in(d)`` one derived stream, and
+    ``normal(shape)``/``uniform(shape)`` draw a tensor of shape
+    ``(*batch, *shape)``. Here every stream shares the one generator, so a
+    split only names the draw; an object with the same methods that holds
+    JAX keys replays the reference's own draws (the parity tests do that).
+    """
+
+    def __init__(self, generator, dtype, device, batch=()):
+        self.generator, self.dtype, self.device, self.batch = generator, dtype, torch.device(device), tuple(batch)
+
+    def _like(self, batch=None):
+        return TorchStream(self.generator, self.dtype, self.device, self.batch if batch is None else batch)
+
+    def split(self, n):
+        return tuple(self._like() for _ in range(n))
+
+    def split_chains(self, n):
+        return self._like((n, *self.batch))
+
+    def fold_in(self, data):
+        return self._like()
+
+    def normal(self, shape=()):
+        return torch.randn((*self.batch, *shape), generator=self.generator, dtype=self.dtype, device=self.device)
+
+    def uniform(self, shape=()):
+        return torch.rand((*self.batch, *shape), generator=self.generator, dtype=self.dtype, device=self.device)
+
+
+def ravel_tree(tree):
+    """(flat, unravel) for a dict of tensors, in ``jax.flatten_util.ravel_pytree``'s
+    order (keys sorted): ``flat`` is 1-D, and ``unravel(v)`` maps a tensor of
+    shape (..., dim) back to a dict whose tensors keep the leading axes."""
+    names = sorted(tree)
+    shapes = [tuple(tree[k].shape) for k in names]
+    sizes = [math.prod(s) for s in shapes]
+    flat = torch.cat([tree[k].reshape(-1) for k in names])
+
+    def unravel(v):
+        lead = v.shape[:-1]
+        return {k: p.reshape(*lead, *s) for k, p, s in zip(names, torch.split(v, sizes, dim=-1), shapes)}
+
+    return flat, unravel
 
 
 def nc_normal(z, mu, sigma):
