@@ -165,7 +165,26 @@ Phases (any failure raises and ends the run with a nonzero exit code):
    probabilities, MH acceptance in [0.1, 0.6], no slice step at the
    200-trial cap after tuning, line accuracy no more than 0.05 below phase
    11's, the kernel launched.
-15. Print the card, the kernels' JSON line, then ``{"ok": true, ...}`` last.
+15. The model layer: ``GP.fit`` → ``prepare_grid`` → ``predict_grid`` →
+   ``save``/``load`` at f32 through ``tools/array_table.py``'s ``GP`` (the
+   card has no pandas, so a dict of numpy columns stands in for the
+   ``DataSet``). (a) bench.py's table, ``make_problem``'s 5,120 locations
+   and two outputs as float64 columns x1, x2, y1, y2 (10,240 tall rows),
+   fit at ``find_MAP``'s defaults (8 restarts, maxiter 500, tol 1e-8),
+   Kronecker auto-selected, and predicted on the 100×100 grid; (b) the same
+   generator at 1,024 locations fit as ``multitask_kernel='Hadamard'``,
+   ``'Independent'`` and auto (Kronecker), each predicted on the grid; (c)
+   (a)'s model saved to a temporary npz, loaded and predicted again.
+   Prints ``GP.fit``'s phase seconds, objective evaluations, L-BFGS
+   iterations per restart, ``rbf_gram`` launches by shape and peak memory.
+   Checks: (a) Kronecker, the f32 objective at the fit within 0.005
+   nats/point of f64, the standardized grid within 1e-2 of the f64
+   posterior at the f32 MAP, ``mvuparray.cor`` a correlation matrix, the
+   grid mean within RMSE 0.05 of the noise-free f1, f2 inside the data's
+   box (natural units, so the Standardizer's round trip is held too); (b)
+   finite grids, the Hadamard grid mean within 1e-2 of the Kronecker one;
+   (c) the loaded model's grid bit-equal to (a)'s; the kernel launched.
+16. Print the card, the kernels' JSON line, then ``{"ok": true, ...}`` last.
    Each kernel's ``bound_ms`` is the largest of its bytes over 3.35 TB/s,
    its product flops as three TF32 passes over 495 TFLOP/s, and its other
    operations over the 67 TFLOP/s FP32 peak; ``bound_fp32_ms`` is the
@@ -183,6 +202,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -268,6 +288,7 @@ from gumbi_tpu_torch.ops.iterative import _row_fn, pivoted_cholesky  # noqa: E40
 from gumbi_tpu_torch.ops.kronecker import _continuous_gram, _whitened_eig, _whitened_systems, kron_parts  # noqa: E402
 from gumbi_tpu_torch.ops.mll import DEFAULT_JITTER, _noisy_gram  # noqa: E402
 from gumbi_tpu_torch.ops.tf32x3 import matmul_3xtf32_plain, tf32_round  # noqa: E402
+from gumbi_tpu_torch.tools.array_table import ArrayTable, ArrayTableGP  # noqa: E402
 from gumbi_tpu_torch.tools.fitc_problem import (  # noqa: E402
     FITC_KMEANS_ITERS,
     FITC_KMEANS_ROWS,
@@ -280,6 +301,7 @@ from gumbi_tpu_torch.tools.fitc_problem import (  # noqa: E402
     make_fitc_problem,
     problem_at,
 )
+from gumbi_tpu_torch.utils.profiling import timings  # noqa: E402
 
 # bench.py's workload (same seeds, spec and stage sizes)
 N_LOCS = 5120
@@ -446,6 +468,12 @@ RBF_BO_SHAPES = [(68, 512), (1088, 512), (132, 1024), (2112, 1024), (65, 256), (
 # The samplers' training Grams (phases 13-14), x2 the same tensor as x1, as
 # every K(X, X) has it: autograd adds both cotangents into one.
 RBF_SAME_SHAPES = [(512, 512), (2048, 2048)]
+# Shapes the model layer's grid predictions give it (phase 15), d = 2, no
+# gradient: the Hadamard grid's two chunks of 8,192 and 3,616 tall rows
+# against the 2,048 training rows, and the Independent and Kronecker grids'
+# 10,000 points against 1,024 locations both ways round. Its fits' 5,120²,
+# 2,048² and 1,024² and (a)'s 5,120×10,000 are checked above.
+RBF_MODEL_SHAPES = [(8192, 2048), (3616, 2048), (10_000, 1024), (1024, 10_000)]
 RBF_REPS, RBF_RUNS = 100, 5  # CUDA events over 100 launches; median of 5 such runs
 RBF_SHAPES = {}  # path -> Counter of rbf_gram launches by output shape (phases 3, 6, 8)
 
@@ -578,6 +606,8 @@ def phase2_kernel_vs_plain():
         max_abs = max(max_abs, _rbf_check(n, m, 2, xgrad=True))
     for n, m in RBF_SAME_SHAPES:
         max_abs = max(max_abs, _rbf_check(n, m, 2, xgrad=True, same=True))
+    for n, m in RBF_MODEL_SHAPES:
+        max_abs = max(max_abs, _rbf_check(n, m, 2, grad=False))
 
     # exactly one CUDA kernel per call (torch.profiler on the card), the
     # autograd route and a shared (expanded) lengthscale included
@@ -612,12 +642,17 @@ def phase2_kernel_vs_plain():
     return max_abs, times
 
 
+def bench_truth(X):
+    """bench.py's noise-free outputs (f1, f2) at locations X (n, 2)."""
+    f1 = np.sin(1.3 * X[:, 0]) * np.cos(0.9 * X[:, 1])
+    return f1, 0.7 * f1 + 0.3 * np.cos(1.1 * X[:, 0])
+
+
 def make_problem(n_locs, device, dtype):
     """bench.py's make_problem, rebuilt with numpy: same seeds, same spec."""
     rng = np.random.default_rng(0)
     Xb = rng.uniform(-2, 2, size=(n_locs, 2)).astype(np.float32)
-    f1 = np.sin(1.3 * Xb[:, 0]) * np.cos(0.9 * Xb[:, 1])
-    f2 = 0.7 * f1 + 0.3 * np.cos(1.1 * Xb[:, 0])
+    f1, f2 = bench_truth(Xb)
     Y = np.stack(
         [f1 + rng.normal(0, 0.1, n_locs), f2 + rng.normal(0, 0.15, n_locs)], axis=1
     ).astype(np.float32)
@@ -2244,6 +2279,176 @@ def phase14_ess(p, laplace):
     return launches, t2 - t0
 
 
+# ------------------------------------------------------------------
+# Phase 15: the model layer, GP.fit -> predict_grid -> save/load
+# ------------------------------------------------------------------
+
+MODEL_OUTPUTS = ["y1", "y2"]
+MODEL_DIMS = ["x1", "x2"]
+MODEL_DENSE_N = 1024  # (b): the Hadamard and Independent fits' locations (2,048 tall rows)
+MODEL_MAP_KWARGS = {}  # find_MAP's defaults: 8 restarts, maxiter 500, tol 1e-8
+MODEL_RMSE_TOL = 0.05  # grid mean against the noise-free surface in the data's box (noise sd 0.1 and 0.15)
+MODEL_HK_TOL = GRID_TOL  # max |Hadamard − Kronecker| grid mean, natural units, two f32 fits of one table
+
+
+def bench_table(n_locs):
+    """make_problem's locations and outputs as a wide table of float64
+    columns x1, x2, y1, y2: one row per location."""
+    _, xc, Y, _, _ = make_problem(n_locs, "cpu", torch.float64)
+    X, Y = xc.numpy(), Y.numpy()
+    return ArrayTable({"x1": X[:, 0], "x2": X[:, 1], "y1": Y[:, 0], "y2": Y[:, 1]}, outputs=MODEL_OUTPUTS)
+
+
+def run_model_fit(table, device, dtype, multitask_kernel=None, map_kwargs=None, grid=GRID):
+    """``ArrayTableGP(table).fit(...)`` over both outputs and both dims, then
+    ``prepare_grid(resolution=grid)`` and ``predict_grid()``. Returns the
+    model, the prediction, the stage seconds (``GP.fit``'s phases and the
+    predict), objective evaluations and rbf_gram launches of each part."""
+    timings.clear()
+    launches0 = RbfGram.launches
+    gp = ArrayTableGP(table, outputs=MODEL_OUTPUTS, dtype=dtype, device=device)
+    gp.fit(outputs=MODEL_OUTPUTS, continuous_dims=MODEL_DIMS, multitask_kernel=multitask_kernel,
+           MAP_kwargs=map_kwargs)
+    _sync(device)
+    fit_launches = RbfGram.launches - launches0
+    t0 = time.perf_counter()
+    gp.prepare_grid(resolution=grid)
+    y = gp.predict_grid()
+    _sync(device)
+    stages = {**timings.last(), "predict": time.perf_counter() - t0}
+    aux = gp._fit_aux
+    auxes = ([aux[f"output_{j}"] for j in range(len(MODEL_OUTPUTS))] if gp._structure == "Independent"
+             else [aux])
+    iters = [a["iters"].tolist() for a in auxes]
+    iters = iters if gp._structure == "Independent" else iters[0]
+    evals = sum(int(a["evals"].sum()) for a in auxes)
+    assert evals > 0, f"{gp._structure} fit reports no objective evaluations"
+    return dict(gp=gp, y=y, stages=stages, evals=evals, iters=iters,
+                launches={"fit": fit_launches, "predict": RbfGram.launches - launches0 - fit_launches})
+
+
+def _log_model(tag, r):
+    st = r["stages"]
+    log(f"[gp_model] {tag}: structure {r['gp']._structure} | specify {st['specify_model']:.3f} s | build "
+        f"{st['build_model']:.3f} s | find_MAP {st['find_MAP']:.3f} s ({r['evals']} objective evaluations, "
+        f"L-BFGS iterations per restart {r['iters']}) | prepare_grid + predict_grid {st['predict']:.3f} s | "
+        f"rbf_gram launches fit {r['launches']['fit']} predict {r['launches']['predict']}")
+
+
+def _grid_means(y):
+    return {o: np.asarray(y.get(o).μ, dtype=np.float64) for o in MODEL_OUTPUTS}
+
+
+def _check_cor(tag, cor):
+    cor = np.asarray(cor, dtype=np.float64)
+    ok = (cor.shape == (2, 2) and np.allclose(cor, cor.T) and np.allclose(np.diag(cor), 1.0)
+          and float(np.abs(cor).max()) <= 1.0 + 1e-6 and float(np.linalg.eigvalsh(cor).min()) >= -1e-6)
+    assert ok, f"{tag}: mvuparray.cor is not a correlation matrix: {cor.tolist()}"
+
+
+def model_grid_errors(gp, y, table):
+    """Grid mean RMSE (natural units) against bench.py's noise-free f1, f2
+    at the grid points inside the data's box, per output."""
+    x1, x2 = gp.grid_parray["x1"].values(), gp.grid_parray["x2"].values()
+    c = table.columns
+    inside = ((x1 >= c["x1"].min()) & (x1 <= c["x1"].max()) & (x2 >= c["x2"].min()) & (x2 <= c["x2"].max()))
+    truth = bench_truth(np.column_stack([x1[inside], x2[inside]]))
+    means = _grid_means(y)
+    return {o: float(np.sqrt(np.mean((means[o][inside] - f) ** 2))) for o, f in zip(MODEL_OUTPUTS, truth)}
+
+
+def kron_f64_gaps(gp):
+    """The fitted Kronecker model's f32 objective against f64 at the same
+    (f32) MAP, in nats per point, and its standardized grid mean and
+    variance against the f64 posterior there."""
+    spec, dev = gp._spec, gp._xc_locs.device
+    u32 = unconstrain(gp._params)
+    u64 = {k: v.double() for k, v in u32.items()}
+    la32, lb32 = (torch.as_tensor(a, dtype=gp._dtype, device=dev) for a in (gp._ls_alpha, gp._ls_beta))
+    la64, lb64 = (torch.as_tensor(a, dtype=torch.float64, device=dev) for a in (gp._ls_alpha, gp._ls_beta))
+    xl64, Y64 = gp._xc_locs.double(), gp._Y.double()
+    points, _, _ = gp._prepare_points_for_prediction(gp.grid_points, output=MODEL_OUTPUTS)
+    m32, v32 = gp.predict(points)
+    with torch.no_grad():
+        f32 = float(kron_neg_logp(spec, u32, gp._xc_locs, gp._Y, la32, lb32))
+        f64 = float(kron_neg_logp(spec, u64, xl64, Y64, la64, lb64))
+        p64 = constrain(u64)
+        n_grid = points.shape[0] // len(MODEL_OUTPUTS)
+        xg = torch.as_tensor(points[:n_grid, : len(MODEL_DIMS)], dtype=torch.float64, device=dev)
+        m64, v64 = kron_predict_diag(spec, p64, kron_cache(spec, p64, xl64, Y64), xg)
+    dmean = float(np.abs(m32.reshape(len(MODEL_OUTPUTS), -1) - m64.cpu().numpy()).max())
+    dvar = float(np.abs(v32.reshape(len(MODEL_OUTPUTS), -1) - v64.cpu().numpy()).max())
+    return f32, f64, abs(f32 - f64) / gp._yz.shape[0], dmean, dvar
+
+
+def phase15_model_layer():
+    """The model layer on the card through tools/array_table.py's GP: (a)
+    bench.py's table (5,120 locations, two outputs) fit at find_MAP's
+    defaults and predicted on the 100×100 grid; (b) the dense Hadamard and
+    Independent fits (and a Kronecker fit for comparison) at 1,024
+    locations; (c) (a)'s model saved, loaded and predicted again."""
+    t_start = time.perf_counter()
+    table, dense_table = bench_table(N_LOCS), bench_table(MODEL_DENSE_N)
+    RbfGram.launches = 0
+    _peak_reset("cuda")
+    with count_rbf_shapes("gp_model") as shapes:
+        ra = run_model_fit(table, "cuda", torch.float32, map_kwargs=MODEL_MAP_KWARGS)
+        peak = _peak_gib("cuda")
+        dense = {mk: run_model_fit(dense_table, "cuda", torch.float32, multitask_kernel=mk,
+                                   map_kwargs=MODEL_MAP_KWARGS) for mk in ("Hadamard", "Independent", None)}
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as d:
+            path = os.path.join(d, "gp.npz")
+            ra["gp"].save(path)
+            loaded = ArrayTableGP.load(path, table, device="cuda")
+        loaded.prepare_grid()
+        y_loaded = loaded.predict_grid()
+        _sync("cuda")
+    launches = RbfGram.launches
+    seconds = time.perf_counter() - t_start
+    assert launches > 0 and sum(shapes.values()) == launches, f"gp_model: rbf_gram launches {launches}, {dict(shapes)}"
+
+    # (a)
+    gp, y = ra["gp"], ra["y"]
+    _log_model(f"(a) N={N_LOCS} x {len(MODEL_OUTPUTS)} outputs", ra)
+    assert gp._structure == "Kronecker", gp._structure
+    assert y.shape == (GRID, GRID), y.shape
+    f32, f64, per_pt, dmean, dvar = kron_f64_gaps(gp)
+    rmse = model_grid_errors(gp, y, table)
+    log(f"[gp_model] (a) neg_logp at fit: f32 {f32:.4f} | f64 {f64:.4f} | |diff| {per_pt:.2e} nats/pt (tol "
+        f"{BASIN_TOL}) | standardized grid vs f64 at the f32 MAP: max|dmean| {dmean:.3e} max|dvar| {dvar:.3e} (tol "
+        f"{GRID_TOL}) | cor {np.asarray(y.cor).round(6).tolist()} | grid mean RMSE vs truth in the data's box "
+        f"{rmse} (tol {MODEL_RMSE_TOL}) | peak {peak:.2f} GiB | rbf_gram by shape {dict(shapes)}")
+    for o in MODEL_OUTPUTS:
+        assert np.isfinite(y.get(o).μ).all() and np.isfinite(y.get(o).σ2).all() and (y.get(o).σ2 >= 0).all(), o
+    assert per_pt <= BASIN_TOL, f"gp_model (a): f32 and f64 objectives differ by {per_pt} nats/pt"
+    assert dmean <= GRID_TOL and dvar <= GRID_TOL, f"gp_model (a): f32 grid differs from f64: {dmean}, {dvar}"
+    _check_cor("gp_model (a)", y.cor)
+    assert max(rmse.values()) <= MODEL_RMSE_TOL, f"gp_model (a): grid mean RMSE vs truth {rmse}"
+    assert ra["launches"]["fit"] > 0 and ra["launches"]["predict"] > 0, f"gp_model (a): {ra['launches']}"
+
+    # (b)
+    for mk, r in dense.items():
+        _log_model(f"(b) N={MODEL_DENSE_N} x {len(MODEL_OUTPUTS)} outputs, multitask_kernel={mk}", r)
+        for o in MODEL_OUTPUTS:
+            u = r["y"].get(o)
+            assert np.isfinite(u.μ).all() and np.isfinite(u.σ2).all() and (u.σ2 >= 0).all(), (mk, o)
+        _check_cor(f"gp_model (b) {mk}", r["y"].cor)
+    assert [dense[mk]["gp"]._structure for mk in dense] == ["Hadamard", "Independent", "Kronecker"]
+    hk = {o: float(np.abs(_grid_means(dense["Hadamard"]["y"])[o] - _grid_means(dense[None]["y"])[o]).max())
+          for o in MODEL_OUTPUTS}
+    log(f"[gp_model] (b) Hadamard vs Kronecker grid mean: max|diff| {hk} (tol {MODEL_HK_TOL}) | Independent cor "
+        f"{np.asarray(dense['Independent']['y'].cor).tolist()}")
+    assert max(hk.values()) <= MODEL_HK_TOL, f"gp_model (b): Hadamard and Kronecker grids differ by {hk}"
+
+    # (c)
+    same = all(np.array_equal(y_loaded.get(o).μ, y.get(o).μ) and np.array_equal(y_loaded.get(o).σ2, y.get(o).σ2)
+               for o in MODEL_OUTPUTS) and np.array_equal(y_loaded.cor, y.cor)
+    log(f"[gp_model] (c) save -> load -> predict_grid bit-equal to (a): {same} | phase 15 took {seconds:.1f} s, "
+        f"rbf_gram launches {launches}")
+    assert same, "gp_model (c): the loaded model's grid differs from the saved model's"
+    return launches, seconds
+
+
 def _rbf_bound(n, m, d):
     bytes_s = 4.0 * (n * d + m * d + n * m) / HBM_BYTES_PER_S
     ops_s = n * m * (3.0 * d + 2.0) / FP32_PEAK
@@ -2284,6 +2489,7 @@ def main():
     sampler_runs, _ = phase13_samplers(dense)
     ess_launches, _ = phase14_ess(lap_p, lap_r)
     del lap_p
+    gp_launches, _ = phase15_model_layer()
     sms, mhz, peak = _fp32_peak_of_card()
     log(f"[card] {sms} SMs at max {mhz:.0f} MHz: FP32 FMA peak {peak / 1e12:.1f} TFLOP/s "
         f"(bounds use the data sheet's {FP32_PEAK / 1e12:.0f})")
@@ -2299,12 +2505,12 @@ def main():
          "replaces": "gumbi_tpu/ops/pallas_kernels.py:111",
          "launches": kron_launches["total"] + iter_launches["rbf_gram"] + dense_launches["rbf_gram"]
          + fitc_launches + fitc_laplace_launches + laplace_launches + sum(r["launches"] for r in bo_runs)
-         + sampler_runs["chees"][0] + sampler_runs["hmc"][0] + ess_launches,
+         + sampler_runs["chees"][0] + sampler_runs["hmc"][0] + ess_launches + gp_launches,
          "launches_by_path": {"kronecker": kron_launches["total"], "iterative": iter_launches["rbf_gram"],
                               "dense": dense_launches["rbf_gram"], "fitc": fitc_launches,
                               "fitc_laplace": fitc_laplace_launches, "laplace": laplace_launches,
                               "bo": sum(r["launches"] for r in bo_runs), "chees": sampler_runs["chees"][0],
-                              "hmc": sampler_runs["hmc"][0], "ess": ess_launches},
+                              "hmc": sampler_runs["hmc"][0], "ess": ess_launches, "gp_model": gp_launches},
          "launches_by_path_and_shape": {path: dict(c) for path, c in RBF_SHAPES.items()},
          "max_abs_err": rbf_max_abs, "ms": k_ms, "plain_ms": p_ms, "bound_ms": rb, "bound_fp32_ms": rb,
          "bound_by": rby,

@@ -1,14 +1,18 @@
 """Gumbi-TPU on PyTorch: the GP engine ported to CUDA (NVIDIA Hopper).
 
 A second package beside the JAX reference ``gumbi_tpu``. It carries the
-engine that ``GP.fit`` and ``predict_grid`` drive for the multi-output LMC:
-kernels, Cholesky likelihoods with analytic backward, priors, the Kronecker
-MLL, L-BFGS with multi-restart, and posterior prediction. The one hand
-kernel on that path, the fused RBF Gram, is CUDA C++ for ``sm_90a``
-(``csrc/rbf_gram.cu``), built with nvcc at first use.
+engine that ``GP.fit`` and ``predict_grid`` drive: kernels, Cholesky
+likelihoods with analytic backward, priors, the Kronecker MLL, L-BFGS with
+multi-restart, and posterior prediction; and the model layer on top of it
+(``GP``, ``Regressor``, the structured arrays and the ``Standardizer``).
+The hand kernels are CUDA C++ for ``sm_90a`` (``csrc/``), built with nvcc
+at first use.
 
-The package imports torch, numpy and scipy only; never JAX, pandas or
-``gumbi_tpu``.
+``import gumbi_tpu_torch`` imports torch, numpy and scipy only; never JAX or
+``gumbi_tpu``, and pandas only when ``DataSet`` (or :mod:`.aggregation`,
+:mod:`.data`) is asked for. The model layer's names (``GP``, ``parray``,
+``uparray``, ``mvuparray``, ``Standardizer``, ``DataSet``, ...) resolve on
+first access.
 """
 
 import torch as _torch
@@ -23,3 +27,39 @@ _torch.set_float32_matmul_precision("highest")
 from . import convert, ops, utils  # noqa: E402,F401
 
 __version__ = "0.1.0"
+
+# Top-level names of the model layer, as ``gumbi_tpu`` exposes them, each
+# imported on first access: name → (module, attribute).
+_LAZY = {
+    "GP": ("models", "GP"),
+    "Regressor": ("models", "Regressor"),
+    "Standardizer": ("standardizer", "Standardizer"),
+    "LayeredArray": ("arrays", "LayeredArray"),
+    "ParameterArray": ("arrays", "ParameterArray"),
+    "UncertainArray": ("arrays", "UncertainArray"),
+    "UncertainParameterArray": ("arrays", "UncertainParameterArray"),
+    "MVUncertainParameterArray": ("arrays", "MVUncertainParameterArray"),
+    "parray": ("arrays", "ParameterArray"),
+    "uarray": ("arrays", "UncertainArray"),
+    "uparray": ("arrays", "UncertainParameterArray"),
+    "mvuparray": ("arrays", "MVUncertainParameterArray"),
+    "make_deltas_parray": ("array_utils", "make_deltas_parray"),
+    "stack": ("array_utils", "stack"),
+    "vstack": ("array_utils", "vstack"),
+    "hstack": ("array_utils", "hstack"),
+    "DataSet": ("aggregation", "DataSet"),
+    "TidyData": ("aggregation", "TidyData"),
+    "WideData": ("aggregation", "WideData"),
+}
+_LAZY_MODULES = ("models", "arrays", "array_utils", "standardizer", "aggregation", "data")
+
+
+def __getattr__(name):
+    import importlib
+
+    if name in _LAZY:
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(f".{module}", __name__), attr)
+    if name in _LAZY_MODULES:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -4,7 +4,8 @@ The reference keeps hyperparameters as a dict of arrays keyed by name
 (``ls_total``, ``η_total``, ``σ``, ``W_Parameter``, ...) and the covariance
 structure as frozen ``GPSpec``/``GPTerm``/``CoregTerm`` dataclasses. These
 helpers move both into the port without importing the reference: numpy
-arrays on one side, tensors on the other, and specs read by attribute.
+arrays on one side, tensors on the other, and specs read by attribute (or
+by key, from a ``GP.save`` file's JSON).
 """
 
 from __future__ import annotations
@@ -38,30 +39,39 @@ def params_to_numpy(params) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
 
 
+def _field(obj, name, default=None):
+    """``obj.name``, or ``obj[name]`` where ``obj`` is a dict: a spec as
+    ``dataclasses.asdict`` gives it, as a ``GP.save`` file's JSON holds it."""
+    return obj.get(name, default) if isinstance(obj, dict) else getattr(obj, name, default)
+
+
 def _coreg(cg):
     if cg is None:
         return None
-    return CoregTerm(name=cg.name, col=int(cg.col), d_out=int(cg.d_out), rank=int(cg.rank))
+    return CoregTerm(name=_field(cg, "name"), col=int(_field(cg, "col")), d_out=int(_field(cg, "d_out")),
+                     rank=int(_field(cg, "rank")))
 
 
 def spec_from_reference(spec) -> GPSpec:
-    """The port's ``GPSpec`` from any object with the reference's fields."""
+    """The port's ``GPSpec`` from any object with the reference's fields, or
+    from ``dataclasses.asdict`` of one (a ``GP.save`` file's ``spec``)."""
     terms = tuple(
         GPTerm(
-            suffix=t.suffix,
-            kernel=t.kernel,
-            linear_idx=tuple(int(i) for i in t.linear_idx),
-            coregs=tuple(_coreg(c) for c in t.coregs),
+            suffix=_field(t, "suffix"),
+            kernel=_field(t, "kernel"),
+            linear_idx=tuple(int(i) for i in _field(t, "linear_idx")),
+            coregs=tuple(_coreg(c) for c in _field(t, "coregs")),
         )
-        for t in spec.terms
+        for t in _field(spec, "terms")
     )
+    period = _field(spec, "period")
     return GPSpec(
         terms=terms,
-        d_cont=int(spec.d_cont),
-        ard=bool(spec.ard),
-        noise_coreg=_coreg(spec.noise_coreg),
-        period=None if spec.period is None else tuple(float(p) for p in spec.period),
-        likelihood=getattr(spec, "likelihood", "gaussian"),
+        d_cont=int(_field(spec, "d_cont")),
+        ard=bool(_field(spec, "ard")),
+        noise_coreg=_coreg(_field(spec, "noise_coreg")),
+        period=None if period is None else tuple(float(p) for p in period),
+        likelihood=_field(spec, "likelihood", "gaussian"),
     )
 
 

@@ -1,0 +1,11 @@
+"""Regression models on the port's engine: the ``Regressor`` base and ``GP``.
+
+Neither imports pandas: the ``DataSet`` check of ``Regressor.__init__``
+imports :mod:`gumbi_tpu_torch.aggregation` when a model is made from a
+``DataSet``.
+"""
+
+from .base import Regressor  # noqa: F401
+from .gp import GP  # noqa: F401
+
+__all__ = ["Regressor", "GP"]

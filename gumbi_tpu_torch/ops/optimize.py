@@ -154,27 +154,36 @@ def multi_restart_minimize(fun, x0s, maxiter=250, tol=1e-6, runner=None):
     run one after another, each through ``runner(x0) -> (x, f, iters)``
     (default: :func:`lbfgs_backtracking_minimize` on ``fun``); those that
     diverge contribute +inf and are ignored in the argmin. ``aux`` carries
-    the per-restart values and iterations and, as ``all_xs``, the stacked
-    per-restart optima (the staged large-N fit falls back to runner-up
-    candidates from them).
+    the per-restart values and iterations, with the default runner the
+    per-restart evaluations of ``fun`` as ``evals`` (None with another
+    runner), and, as ``all_xs``, the stacked per-restart optima (the staged
+    large-N fit falls back to runner-up candidates from them).
     """
-    if runner is None:
+    n_evals, counting = [0], runner is None
+    if counting:
+        def counted(x):
+            n_evals[0] += 1
+            return fun(x)
+
         def runner(x0):
-            return lbfgs_backtracking_minimize(fun, x0, maxiter=maxiter, ftol=tol)
+            return lbfgs_backtracking_minimize(counted, x0, maxiter=maxiter, ftol=tol)
 
     R = next(iter(x0s.values())).shape[0]
-    xs, fs, its = [], [], []
+    xs, fs, its, evs = [], [], [], []
     for i in range(R):
+        before = n_evals[0]
         x, f, it = runner({k: v[i] for k, v in x0s.items()})
         xs.append(x)
         fs.append(float(f))
         its.append(int(it))
+        evs.append(n_evals[0] - before)
     fs = np.asarray(fs)
     fs_safe = np.where(np.isfinite(fs), fs, np.inf)
     best = int(np.argmin(fs_safe))
     aux = {
         "all_values": fs,
         "iters": np.asarray(its),
+        "evals": np.asarray(evs) if counting else None,
         "best_restart": best,
         "all_xs": {k: torch.stack([x[k] for x in xs]) for k in xs[0]},
     }

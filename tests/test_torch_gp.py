@@ -1,0 +1,271 @@
+"""The port's ``GP`` (``gumbi_tpu_torch/models/gp.py``) against the JAX reference.
+
+At f64 on the CPU, on the bundled cars table:
+
+* ``build_model`` builds the reference's state (spec, structure, engine
+  arrays, priors) over a matrix of structures; it compiles nothing in JAX,
+  so the matrix is cheap;
+* the port fits and saves, and the reference's ``GP.load`` predicts the
+  port's grid (rtol 1e-9) for the Kronecker, Hadamard-with-categorical and
+  Independent structures, with no reference fit;
+* one reference fit (the cars quickstart) loads in the port and predicts
+  the reference's grid, and the port's own fit of it lands within the
+  basin tolerance of the reference's objective;
+* additive sublevel predictions match the reference's, and both raise
+  alike where sublevels are undefined;
+* the calls of later steps raise ``NotImplementedError``, and the entry
+  points without ``device=`` run on CUDA or raise.
+"""
+
+from dataclasses import asdict
+
+import numpy as np
+import pytest
+import torch
+
+import gumbi_tpu as gmb
+import gumbi_tpu_torch as gmt
+from gumbi_tpu_torch.tools.array_table import ArrayTable, ArrayTableGP
+from gumbi_tpu_torch.utils.profiling import timings
+
+torch.set_num_threads(2)
+
+BASIN_TOL = 0.005  # nats/point, tests/test_bench_quality.py's tolerance
+OUTPUTS = ["mpg", "acceleration"]
+LOG_VARS = ["mpg", "acceleration", "horsepower", "weight"]
+MAP_KW = dict(n_restarts=2, maxiter=40)
+
+
+def _frame(n):
+    return gmb.data.cars(n=n).drop(columns=["name"])
+
+
+def _datasets(n=60):
+    df = _frame(n)
+    return (gmb.DataSet(df, outputs=OUTPUTS, log_vars=LOG_VARS),
+            gmt.DataSet(df, outputs=OUTPUTS, log_vars=LOG_VARS))
+
+
+def _np(a):
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _period(gp):
+    return gp.parray(horsepower=60.0, weight=400.0, stdzd=False)
+
+
+# name → (specify_model kwargs, build_model kwargs); ``period`` is filled per package
+STRUCTURES = {
+    "hadamard_categorical": (dict(outputs=OUTPUTS, continuous_dims=["horsepower", "weight"],
+                                  categorical_dims=["origin"]), {}),
+    "hadamard_forced": (dict(outputs=OUTPUTS, continuous_dims=["horsepower"]), dict(multitask_kernel="Hadamard")),
+    "kronecker": (dict(outputs=OUTPUTS, continuous_dims=["horsepower", "weight"]), {}),
+    "independent": (dict(outputs=OUTPUTS, continuous_dims=["horsepower"], categorical_dims=["origin"]),
+                    dict(multitask_kernel="Independent")),
+    "additive": (dict(outputs=["mpg"], continuous_dims=["horsepower"], categorical_dims=["origin"], additive=True),
+                 {}),
+    "linear_dims": (dict(outputs=["mpg"], continuous_dims=["horsepower", "weight"], linear_dims=["weight"]), {}),
+    "periodic": (dict(outputs=["mpg"], continuous_dims=["horsepower", "weight"]),
+                 dict(continuous_kernel="ExpQuad+Periodic", period=_period)),
+    "ard_off": (dict(outputs=OUTPUTS, continuous_dims=["horsepower", "weight"]), dict(ARD=False)),
+    "bucket": (dict(outputs=OUTPUTS, continuous_dims=["horsepower"]), dict(bucket=64)),
+}
+
+
+def _build(gp, name):
+    spec_kw, build_kw = STRUCTURES[name]
+    build_kw = {k: (v(gp) if callable(v) else v) for k, v in build_kw.items()}
+    gp.specify_model(**spec_kw)
+    gp.build_model(**build_kw)
+    return gp
+
+
+@pytest.mark.parametrize("name", list(STRUCTURES))
+def test_build_model_state_matches_the_reference(name):
+    ds_ref, ds_port = _datasets()
+    ref = _build(gmb.GP(ds_ref), name)
+    port = _build(gmt.GP(ds_port, device="cpu"), name)
+
+    assert port._dtype == torch.float64
+    assert asdict(port._spec) == asdict(ref._spec)
+    assert port._structure == ref._structure
+    for attr in ("dims", "levels", "coords", "filter_dims"):
+        assert getattr(port, attr) == getattr(ref, attr), attr
+    for attr in ("_xc", "_xk", "_yz"):
+        np.testing.assert_array_equal(_np(getattr(port, attr)), _np(getattr(ref, attr)), err_msg=attr)
+    np.testing.assert_array_equal(port._ls_alpha, ref._ls_alpha)
+    np.testing.assert_array_equal(port._ls_beta, ref._ls_beta)
+    assert (port._mask is None) == (ref._mask is None)
+    if ref._mask is not None:
+        np.testing.assert_array_equal(_np(port._mask), _np(ref._mask))
+    if ref._structure == "Kronecker":
+        np.testing.assert_array_equal(_np(port._Y), _np(ref._Y))
+        np.testing.assert_array_equal(_np(port._xc_locs), _np(ref._xc_locs))
+    if ref._structure == "Independent":
+        assert len(port._ind_data) == len(ref._ind_data)
+        for pj, rj in zip(port._ind_data, ref._ind_data):
+            for a, b in zip(pj, rj):
+                np.testing.assert_array_equal(_np(a), _np(b))
+    expected = {"hadamard_categorical": "Hadamard", "hadamard_forced": "Hadamard", "kronecker": "Kronecker",
+                "independent": "Independent", "ard_off": "Kronecker", "bucket": "Hadamard"}
+    assert port._structure == expected.get(name, "Hadamard")
+
+
+def _grid_pairs(y_ref, y_port, outputs):
+    if len(outputs) == 1:
+        return [(y_ref, y_port)]
+    return [(y_ref.get(o), y_port.get(o)) for o in outputs]
+
+
+def _assert_grids_close(y_ref, y_port, outputs, rtol=1e-9):
+    for a, b in _grid_pairs(y_ref, y_port, outputs):
+        np.testing.assert_allclose(b.μ, a.μ, rtol=rtol)
+        np.testing.assert_allclose(b.σ2, a.σ2, rtol=rtol)
+    if len(outputs) > 1:
+        np.testing.assert_allclose(y_port.cor, y_ref.cor, rtol=rtol, atol=1e-12)
+
+
+@pytest.mark.parametrize("name", ["kronecker", "hadamard_categorical", "independent"])
+def test_reference_loads_the_port_save_and_predicts_its_grid(name, tmp_path):
+    ds_ref, ds_port = _datasets()
+    spec_kw, build_kw = STRUCTURES[name]
+    port = gmt.GP(ds_port, device="cpu").fit(**spec_kw, **build_kw, MAP_kwargs=MAP_KW)
+    path = tmp_path / "port.npz"
+    port.save(path)
+    ref = gmb.GP.load(path, ds_ref)
+    assert ref._structure == port._structure
+    levels = {"origin": "usa"} if spec_kw.get("categorical_dims") else None
+    for gp in (port, ref):
+        gp.prepare_grid(resolution=9)
+    y_port = port.predict_grid(categorical_levels=levels)
+    y_ref = ref.predict_grid(categorical_levels=levels)
+    _assert_grids_close(y_ref, y_port, spec_kw["outputs"])
+
+
+def test_reference_fit_loads_in_the_port_and_the_port_fit_meets_it(tmp_path):
+    """The cars quickstart: a reference fit, saved and loaded by the port,
+    predicts the reference's grid; the port's own fit lands within
+    BASIN_TOL nats/point of the reference's objective."""
+    df = gmb.data.cars()
+    kw = dict(outputs=["mpg", "acceleration"], log_vars=["mpg", "acceleration", "horsepower"])
+    fit_kw = dict(outputs=["mpg"], continuous_dims=["horsepower"], MAP_kwargs=dict(n_restarts=2, maxiter=50))
+    ref = gmb.GP(gmb.DataSet(df, **kw)).fit(**fit_kw)
+    path = tmp_path / "ref.npz"
+    ref.save(path)
+    port = gmt.GP.load(path, gmt.DataSet(df, **kw), device="cpu")
+    for k, v in ref.MAP.items():
+        np.testing.assert_array_equal(port.MAP[k], np.asarray(v))
+    ref.prepare_grid()
+    port.prepare_grid()
+    _assert_grids_close(ref.predict_grid(), port.predict_grid(), ["mpg"])
+
+    own = gmt.GP(gmt.DataSet(df, **kw), device="cpu").fit(**fit_kw)
+    assert set(timings.last()) >= {"specify_model", "build_model", "find_MAP"}
+    n = own._yz.shape[0]
+    assert abs(own._neg_logp - ref._neg_logp) <= BASIN_TOL * n, (own._neg_logp, ref._neg_logp)
+    own.prepare_grid()
+    y = own.predict_grid()
+    assert y.μ[0] > y.μ[-1]  # mpg falls with horsepower, as the reference quickstart checks
+
+
+def test_additive_levels_match_the_reference(tmp_path):
+    ds_ref, ds_port = _datasets()
+    spec_kw, build_kw = STRUCTURES["additive"]
+    port = gmt.GP(ds_port, device="cpu").fit(**spec_kw, **build_kw, MAP_kwargs=MAP_KW)
+    path = tmp_path / "additive.npz"
+    port.save(path)
+    ref = gmb.GP.load(path, ds_ref)
+    for gp in (port, ref):
+        gp.prepare_grid(resolution=9)
+    points = port.append_categorical_points(port.grid_points, categorical_levels={"origin": "europe"})
+    points_array, _, _ = port._prepare_points_for_prediction(points, output=["mpg"])
+    for level in ("total", "global", "origin"):
+        m_p, v_p = port.predict(points_array, additive_level=level)
+        m_r, v_r = ref.predict(points_array, additive_level=level)
+        np.testing.assert_allclose(m_p, np.asarray(m_r), rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(v_p, np.asarray(v_r), rtol=1e-9, atol=1e-12)
+    for gp in (port, ref):
+        with pytest.raises(ValueError, match="not among"):
+            gp.predict(points_array, additive_level="model_year")
+
+
+@pytest.mark.parametrize("name,error", [("kronecker", ValueError), ("independent", NotImplementedError)])
+def test_additive_level_raises_as_the_reference(name, error, tmp_path):
+    ds_ref, ds_port = _datasets()
+    spec_kw, build_kw = STRUCTURES[name]
+    if name == "independent":
+        spec_kw = {**spec_kw, "additive": True}
+    port = gmt.GP(ds_port, device="cpu").fit(**spec_kw, **build_kw, MAP_kwargs=dict(n_restarts=1, maxiter=5))
+    path = tmp_path / "m.npz"
+    port.save(path)
+    ref = gmb.GP.load(path, ds_ref)
+    points = np.zeros((2, len(port.dims)))
+    for gp in (port, ref):
+        with pytest.raises(error):
+            gp.predict(points, additive_level="global")
+
+
+def _fitted_port(n=40):
+    _, ds = _datasets(n)
+    return gmt.GP(ds, device="cpu").fit(outputs=["mpg"], continuous_dims=["horsepower"],
+                                        MAP_kwargs=dict(n_restarts=1, maxiter=5))
+
+
+LATER = {
+    "sparse": lambda gp: gp.build_model(sparse=True),
+    "heteroskedastic_inputs": lambda gp: gp.build_model(heteroskedastic_inputs=True),
+    "engine_iterative": lambda gp: gp.find_MAP(engine="iterative"),
+    "mesh": lambda gp: gp.find_MAP(mesh=object()),
+    "shard_data": lambda gp: gp.find_MAP(shard_data=True),
+    "predict_mesh": lambda gp: gp.predict(np.zeros((1, 1)), mesh=object()),
+    "sample": lambda gp: gp.sample(),
+    "draw_point_samples": lambda gp: gp.draw_point_samples(gp.grid_points),
+    "draw_grid_samples": lambda gp: gp.draw_grid_samples(),
+    "propose_q": lambda gp: gp.propose(q=1),
+    "predict_grad": lambda gp: gp.predict_grad(np.zeros((1, 1))),
+    "predict_points_grad": lambda gp: gp.predict_points_grad(gp.grid_points),
+    "predict_grid_grad": lambda gp: gp.predict_grid_grad(),
+}
+
+
+@pytest.mark.parametrize("name", list(LATER))
+def test_later_steps_raise_not_implemented(name):
+    gp = _fitted_port()
+    gp.prepare_grid(resolution=4)
+    with pytest.raises(NotImplementedError, match="step"):
+        LATER[name](gp)
+
+
+@pytest.mark.parametrize("extra", ["xu_c", "noise_zt"])
+def test_load_of_a_later_steps_save_raises(extra, tmp_path):
+    gp = _fitted_port()
+    path = tmp_path / "m.npz"
+    gp.save(path)
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    np.savez(path, **arrays, **{extra: np.zeros(1)})
+    with pytest.raises(NotImplementedError, match="step"):
+        gmt.GP.load(path, gp.data, device="cpu")
+
+
+def test_entry_points_without_device_run_on_cuda_or_raise(tmp_path):
+    """With no ``device``, ``GP``, ``GP.load`` and the array table's GP go
+    to the CUDA card; on a host without one they raise instead of carrying
+    on on the CPU. The CPU is used when asked for, at f64."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device exists")
+    gp = _fitted_port()
+    assert gp._xc.device.type == "cpu" and gp._xc.dtype == torch.float64
+    path = tmp_path / "m.npz"
+    gp.save(path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gmt.GP(gp.data)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gmt.GP.load(path, gp.data)
+    table = ArrayTable({"x": np.arange(4.0), "y": np.arange(4.0) ** 2}, outputs=["y"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ArrayTableGP(table)
+    loaded = gmt.GP.load(path, gp.data, device="cpu")
+    assert loaded._xc.device.type == "cpu" and loaded._dtype == torch.float64
+    f32 = gmt.GP(gp.data, device="cpu", dtype="float32")
+    assert f32._dtype == torch.float32

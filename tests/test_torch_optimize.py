@@ -88,9 +88,12 @@ def test_nonfinite_start_returns_start():
 
 
 def test_multi_restart_argmin_ignores_nan_restarts():
-    """A restart whose objective is NaN everywhere never wins."""
+    """A restart whose objective is NaN everywhere never wins; ``aux``
+    counts each restart's evaluations of the objective."""
+    calls = [0]
 
     def f(p):
+        calls[0] += 1
         x = p["x"]
         return torch.where(x[0] > 5.0, torch.nan, ((x - 1.0) ** 2).sum())
 
@@ -100,6 +103,10 @@ def test_multi_restart_argmin_ignores_nan_restarts():
     assert aux["best_restart"] in (1, 2)
     np.testing.assert_allclose(x["x"].numpy(), 1.0, atol=1e-5)
     assert float(fbest) < 1e-10
+    assert int(aux["evals"].sum()) == calls[0] and aux["evals"][0] == 1
+    assert (aux["evals"][1:] >= aux["iters"][1:] + 1).all()
+    runner = lambda u0: to.lbfgs_backtracking_minimize(f, u0, maxiter=5)  # noqa: E731
+    assert to.multi_restart_minimize(None, x0s, runner=runner)[2]["evals"] is None
 
 
 def test_fit_kron_map_matches_reference():
