@@ -25,7 +25,10 @@ Phases (any failure raises and ends the run with a nonzero exit code):
    two calls bit-equal, and (up to 10⁶ entries) the ls/η gradients
    through autograd; the same at the shapes phases 9-11 give it, at BO's
    (phase 12) with the x1/x2 cotangents too, and at the samplers' training
-   Grams (512², 2,048²) with x2 the same tensor as x1. Count with torch.profiler that each call runs exactly
+   Grams (512², 2,048²) with x2 the same tensor as x1, at phase 15's grid
+   shapes and at phase 16's (10,240² and 20,000² with x2 the same tensor
+   as x1, 20,000×10,240, 5,120×132 and 5,120×2,112 with the x1/x2
+   cotangents, 10,000×512, 10,000²). Count with torch.profiler that each call runs exactly
    one CUDA kernel. Time kernel and plain in turns at (1, 50,000),
    (2,500, 50,000), 1,024², 5,120², 5,120×10,000 and 16,384²: CUDA events
    over 100 launches, the median of 5 such runs, beside the profiler's
@@ -146,9 +149,10 @@ Phases (any failure raises and ends the run with a nonzero exit code):
    the f32 value at the candidate within the run's limit (``ACQ_F64_TOL``,
    log units) of the f64 plain path's, the kernel launched on each run.
 13. ``GP.sample``'s ops path on 12(a)'s problem from its MAP fit:
-   ``chees_sample`` (16 chains, tune 500, draws 500, target 0.75, at most
-   256 leapfrog steps) and ``hmc_sample`` (2 chains, 32 steps, target 0.8,
-   tune/draws 100/100), both on the chain-batched objective
+   ``chees_sample`` (16 chains, target 0.75, at most 256 leapfrog steps)
+   and ``hmc_sample`` (2 chains, 32 steps, target 0.8), each at tune/draws
+   100/100 (phase 16 runs ChEES at its defaults through ``GP.sample``),
+   both on the chain-batched objective
    ``map_neg_logp_chains``: one objective call for all chains a leapfrog
    step (counted). Prints seconds per iteration, the adapted step size and
    trajectory length, leapfrog steps per iteration and one batched
@@ -184,7 +188,30 @@ Phases (any failure raises and ends the run with a nonzero exit code):
    box (natural units, so the Standardizer's round trip is held too); (b)
    finite grids, the Hadamard grid mean within 1e-2 of the Kronecker one;
    (c) the loaded model's grid bit-equal to (a)'s; the kernel launched.
-16. Print the card, the kernels' JSON line, then ``{"ok": true, ...}`` last.
+16. The rest of ``GP``'s dense surface through the same array table, with
+   every launch count at 0 before its calls. (a) On phase 15 (a)'s fitted
+   model (no second fit): ``draw_grid_samples`` of 4 joint draws of both
+   outputs over the 100×100 grid (a 20,000-point joint covariance, the
+   ``with_noise=False`` default), ``predict_grid_grad`` with and without
+   norms, ``propose(q=2)`` at its defaults (qLogNEHVI-2d). (b) On phase
+   12a's N = 512 problem as a one-output table: ``GP.fit`` at
+   ``find_MAP``'s defaults, ``propose(q=4)`` (qLogNEI) at its defaults,
+   ``GP.sample()`` (ChEES, 16 chains, 500 + 500), ``GP.sample(sampler=
+   'hmc')`` at phase 13's 100 + 100, and 16 ``draw_point_samples`` from
+   the ChEES trace on the 100×100 grid. Prints each call's seconds and
+   peak GiB and ``rbf_gram`` launches by shape. Checks, against an f64
+   twin of each model at the same MAP (the plain path): (a) finite draws
+   within √floor·max|eps| + 1e-2 (standardized) of f64 draws on the same
+   normal block and floor, each gradient layer within 1e-2/ℓ_min (the grid
+   rule over the shortest lengthscale, in the layer's units) of f64, the
+   f64 gradient within 1e-4 of central differences of ``predict`` at 5 grid
+   points and the f32 one within 1e-2/ℓ_min, the candidates in the data's
+   box and the f32 acquisition there within 1e-3 log units of f64; (b) the
+   same proposal checks, ChEES acceptance in [0.5, 0.95], HMC's at least
+   0.5, the ChEES lengthscale medians (in the data's units) within rtol
+   0.35 of phase 13's, finite trace draws of shape (16, 10,000); the
+   kernel launched.
+17. Print the card, the kernels' JSON line, then ``{"ok": true, ...}`` last.
    Each kernel's ``bound_ms`` is the largest of its bytes over 3.35 TB/s,
    its product flops as three TF32 passes over 495 TFLOP/s, and its other
    operations over the 67 TFLOP/s FP32 peak; ``bound_fp32_ms`` is the
@@ -198,6 +225,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import json
 import os
 import subprocess
@@ -263,6 +291,7 @@ from gumbi_tpu_torch.ops import (  # noqa: E402
     optimize_acqf,
     optimize_qlog_nei,
     posterior_cache,
+    predict_cov,
     predict_diag_chunked,
     qlog_nehvi_2d,
     qlog_nehvi_mc,
@@ -287,6 +316,7 @@ from gumbi_tpu_torch.ops.hopper_kernels import (  # noqa: E402
 from gumbi_tpu_torch.ops.iterative import _row_fn, pivoted_cholesky  # noqa: E402
 from gumbi_tpu_torch.ops.kronecker import _continuous_gram, _whitened_eig, _whitened_systems, kron_parts  # noqa: E402
 from gumbi_tpu_torch.ops.mll import DEFAULT_JITTER, _noisy_gram  # noqa: E402
+from gumbi_tpu_torch.ops.posterior import draw_floor  # noqa: E402
 from gumbi_tpu_torch.ops.tf32x3 import matmul_3xtf32_plain, tf32_round  # noqa: E402
 from gumbi_tpu_torch.tools.array_table import ArrayTable, ArrayTableGP  # noqa: E402
 from gumbi_tpu_torch.tools.fitc_problem import (  # noqa: E402
@@ -302,6 +332,7 @@ from gumbi_tpu_torch.tools.fitc_problem import (  # noqa: E402
     problem_at,
 )
 from gumbi_tpu_torch.utils.profiling import timings  # noqa: E402
+from gumbi_tpu_torch.utils.torch_utils import TorchStream  # noqa: E402
 
 # bench.py's workload (same seeds, spec and stage sizes)
 N_LOCS = 5120
@@ -474,6 +505,18 @@ RBF_SAME_SHAPES = [(512, 512), (2048, 2048)]
 # 10,000 points against 1,024 locations both ways round. Its fits' 5,120²,
 # 2,048² and 1,024² and (a)'s 5,120×10,000 are checked above.
 RBF_MODEL_SHAPES = [(8192, 2048), (3616, 2048), (10_000, 1024), (1024, 10_000)]
+# Shapes phase 16 gives it, d = 2: (a) the Kronecker model's dense cache
+# (10,240 tall rows, x2 the same tensor as x1), the joint draws' cross and
+# test blocks over both outputs' 20,000 grid rows, the gradients' cross block
+# with the x1 cotangent, and propose(q=2)'s Kronecker joint posterior: the
+# 5,120 locations against a restart block (2 × (2 + 64) rows) and a
+# raw-sweep chunk of 16, with the x2 cotangent; (b) the trace draws' grid
+# against N = 512 and their 10,000² test block (its fit, propose(q=4) and
+# samplers give the 512², 68×512 and 1088×512 checked above). (shape,
+# cotangents, x2 is x1)
+RBF_SURFACE_SHAPES = [((10_240, 10_240), False, True), ((20_000, 10_240), True, False),
+                      ((20_000, 20_000), False, True), ((5120, 132), True, False), ((5120, 2112), True, False),
+                      ((10_000, 512), False, False), ((10_000, 10_000), False, True)]
 RBF_REPS, RBF_RUNS = 100, 5  # CUDA events over 100 launches; median of 5 such runs
 RBF_SHAPES = {}  # path -> Counter of rbf_gram launches by output shape (phases 3, 6, 8)
 
@@ -608,6 +651,8 @@ def phase2_kernel_vs_plain():
         max_abs = max(max_abs, _rbf_check(n, m, 2, xgrad=True, same=True))
     for n, m in RBF_MODEL_SHAPES:
         max_abs = max(max_abs, _rbf_check(n, m, 2, grad=False))
+    for (n, m), xgrad, same in RBF_SURFACE_SHAPES:
+        max_abs = max(max_abs, _rbf_check(n, m, 2, grad=xgrad, xgrad=xgrad, same=same))
 
     # exactly one CUDA kernel per call (torch.profiler on the card), the
     # autograd route and a shared (expanded) lengthscale included
@@ -1567,6 +1612,22 @@ def phase8_dense(breakdown=False):
         f"{dmean:.3e}")
     assert between <= BASIN_TOL, f"the two fits differ by {between} nats/pt"
 
+    # what the draws' floor (ops.posterior.draw_floor) moved: the library
+    # campaign's draws against the same normal block at the bare jitter
+    r = stock
+    with torch.no_grad():
+        xkd = torch.zeros((r["xd"].shape[0], 0), dtype=torch.long, device="cuda")
+        p = constrain(r["u_best"])
+        mean_d, cov = predict_cov(r["spec"], p, r["cache"], r["xd"], xkd, with_noise=True)
+        floor = float(draw_floor(cov, gram_diag(r["spec"], p, r["xd"], xkd), DEFAULT_JITTER))
+        eps = torch.randn(r["draws"].shape, generator=torch.Generator(device="cuda").manual_seed(0),
+                          dtype=cov.dtype, device="cuda")
+        cov.diagonal().add_(DEFAULT_JITTER)
+        bare = mean_d[None, :] + eps @ torch.linalg.cholesky(cov).T
+    log(f"[dense] draws' floor {floor:.3e} (jitter {DEFAULT_JITTER}, {r['xd'].shape[0]} points, with noise): max "
+        f"|draws - draws at the bare jitter| on the same normal block {float((r['draws'] - bare).abs().max()):.3e} "
+        f"(draws' max |value| {float(r['draws'].abs().max()):.3e})")
+
     # one value+grad of the full-N objective at the fitted point, each factor
     r = stock
     la_t, lb_t = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (r["la"], r["lb"]))
@@ -1980,6 +2041,9 @@ ACQ_F64_TOL = {"qLogNEI q=4": 1e-3, "qLogNEHVI-2d q=2": 4e-4, "qLogNEHVI-MC q=1 
 ACQ_RAW_TOL = 1e-4
 # GP.sample's defaults (gp.py:1502-1540)
 CHEES_CHAINS, CHEES_TUNE, CHEES_DRAWS, CHEES_TARGET, CHEES_MAX_LEAP = 16, 500, 500, 0.75, 256
+# phase 13's ops-level ChEES, cut from the defaults for time: phase 16 runs
+# GP.sample() at the defaults through the model layer on the same problem
+CHEES_OPS_TUNE, CHEES_OPS_DRAWS = 100, 100
 # sampler='hmc' at its defaults but tune/draws, cut from 500/500 for time (PERF.md §4)
 HMC_CHAINS, HMC_TUNE, HMC_DRAWS, HMC_LEAP, HMC_TARGET = 2, 100, 100, 32, 0.8
 LS_MEDIAN_RTOL = 0.35  # tests/test_extras.py's ChEES-against-HMC median rule
@@ -2159,7 +2223,7 @@ def _natural_median(samples):
 
 def phase13_samplers(dense):
     """GP.sample's ops path on phase 12a's problem and MAP fit: ChEES (16
-    chains batched, tune 500, draws 500), then fixed-length HMC (2 chains,
+    chains batched, tune 100, draws 100), then fixed-length HMC (2 chains,
     32 leapfrog steps, tune/draws 100/100), both on the chain-batched exact
     objective; checks, and one batched 16-chain value+grad timed with each
     factor at the seam."""
@@ -2176,7 +2240,7 @@ def phase13_samplers(dense):
     q0 = unconstrain(dense["params"])
     out = {}
     for name, sampler, kw in (
-        ("chees", chees_sample, dict(draws=CHEES_DRAWS, tune=CHEES_TUNE, chains=CHEES_CHAINS,
+        ("chees", chees_sample, dict(draws=CHEES_OPS_DRAWS, tune=CHEES_OPS_TUNE, chains=CHEES_CHAINS,
                                      target_accept=CHEES_TARGET, max_leapfrog=CHEES_MAX_LEAP)),
         ("hmc", hmc_sample, dict(draws=HMC_DRAWS, tune=HMC_TUNE, chains=HMC_CHAINS, n_leapfrog=HMC_LEAP,
                                  target_accept=HMC_TARGET)),
@@ -2231,7 +2295,7 @@ def phase13_samplers(dense):
         vg["hand"], _ = _time_host(lambda: _value_and_grad(objective, u_last), 20)
     log(f"[chees] one batched value+grad, {CHEES_CHAINS} chains at N={BO_N} at the last draws: library factor "
         f"{vg['library'] * 1e3:.3f} ms | hand factor (hopper_chol.seam_cholesky) {vg['hand'] * 1e3:.3f} ms")
-    return {k: (v["launches"], v["secs"]) for k, v in out.items()}, vg
+    return {k: (v["launches"], v["secs"]) for k, v in out.items()}, vg, med_c
 
 
 def phase14_ess(p, laplace):
@@ -2446,6 +2510,290 @@ def phase15_model_layer():
     log(f"[gp_model] (c) save -> load -> predict_grid bit-equal to (a): {same} | phase 15 took {seconds:.1f} s, "
         f"rbf_gram launches {launches}")
     assert same, "gp_model (c): the loaded model's grid differs from the saved model's"
+    return launches, seconds, gp
+
+
+# ------------------------------------------------------------------
+# Phase 16: the model layer, the rest: draws, gradients, propose, sample
+# ------------------------------------------------------------------
+
+SURFACE_DRAWS = 4  # (a)'s joint grid draws: both outputs, 20,000 points
+SURFACE_FD_POINTS = 5  # grid points of the central differences
+SURFACE_FD_H = 1e-3  # their step in z-units
+SURFACE_FD_RTOL = 1e-4  # f64 gradient against f64 central differences, of the largest entry
+SURFACE_ACQ_TOL = 1e-3  # |f32 − f64| of the acquisition at the candidate, log units (phase 12's rule)
+SURFACE_TRACE_DRAWS = 16  # draw_point_samples(source=trace)'s n_samples
+SURFACE_BO_N = BO_N  # (b): phase 12a's problem as a table
+
+
+def f64_twin(gp):
+    """A shallow copy of a fitted model with its data, MAP and caches in f64
+    (the plain path: no kernel runs at f64), for the f32 − f64 checks."""
+    tw = copy.copy(gp)
+    tw._dtype, tw.sample_vars = torch.float64, None
+    tw._xc, tw._yz = gp._xc.double(), gp._yz.double()
+    tw._params = {k: v.double() for k, v in gp._params.items()}
+    tw._cache = None
+    if gp._structure == "Kronecker":
+        tw._xc_locs, tw._Y = gp._xc_locs.double(), gp._Y.double()
+        with torch.no_grad():
+            tw._kron_cache = kron_cache(tw._spec, tw._params, tw._xc_locs, tw._Y)
+    return tw
+
+
+def _timed(device, fn):
+    """(fn(), seconds, peak GiB) with the device synchronized around it."""
+    _peak_reset(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t0, _peak_gib(device)
+
+
+def _grid_tall(gp, points):
+    """The tall z-space points array of ``points`` for every output."""
+    return gp._prepare_points_for_prediction(points, output=gp.outputs)[0]
+
+
+def run_surface_a(gp, n_draws=SURFACE_DRAWS, seed=0, propose_kw=None):
+    """Phase 16 (a)'s user calls on a fitted model with a prepared grid:
+    ``draw_grid_samples`` (both outputs jointly, ``with_noise=False``, the
+    normal block from a generator seeded with ``seed``),
+    ``predict_grid_grad`` with and without norms, ``propose(q=2)`` at its
+    defaults (``propose_kw`` may set its raw q-batches and restarts, which
+    leave the acquisition as it is). Returns each result with its seconds
+    and peak GiB."""
+    dev = gp._device
+    stream = TorchStream(torch.Generator(device=dev).manual_seed(seed), gp._dtype, dev)
+    calls = {
+        "draw_grid_samples": lambda: gp.draw_grid_samples(n_samples=n_draws, stream=stream),
+        "predict_grid_grad(norm=False)": lambda: gp.predict_grid_grad(norm=False),
+        "predict_grid_grad(norm=True)": lambda: gp.predict_grid_grad(norm=True),
+        "propose(q=2)": lambda: gp.propose(q=2, **(propose_kw or {})),
+    }
+    return {name: _timed(dev, fn) for name, fn in calls.items()}
+
+
+def check_surface_a(gp, res, n_draws=SURFACE_DRAWS, seed=0):
+    """(a)'s numbers against the f64 twin at the same MAP. Returns a dict of
+    the measured gaps and their limits; asserts nothing."""
+    dev, outs = gp._device, gp.outputs
+    tw = f64_twin(gp)
+    out = {}
+
+    # Draws: the model's against f64 draws on the same normal block with the
+    # same floor. The f32 covariance's rounding (entries off by up to ~the
+    # floor) moves the factor's near-null columns by ~√floor, so the draws
+    # by up to √floor·max|eps|; the posterior mean's f32 error adds GRID_TOL.
+    y = res["draw_grid_samples"][0]
+    d32 = np.stack([np.asarray(y[o].z.values()).reshape(n_draws, -1) for o in outs], 1).reshape(n_draws, -1)
+    points = gp.grid_points
+    if gp.categorical_dims:
+        points = gp.append_categorical_points(points, categorical_levels=None)
+    A_grid = np.asarray(_grid_tall(gp, points))
+    xc, xk = gp._split_X(A_grid)
+    m = xc.shape[0]
+    eps = torch.randn((n_draws, m), generator=torch.Generator(device=dev).manual_seed(seed), dtype=gp._dtype,
+                      device=dev)
+    with torch.no_grad():
+        prior = gram_diag(gp._spec, gp._params, xc, xk)
+        floor = max(DEFAULT_JITTER, m * torch.finfo(gp._dtype).eps * float(prior.mean()))
+        d64 = draw_samples(tw._spec, tw._params, tw._ensure_dense_cache(), xc.double(), xk, eps=eps.double(),
+                           jitter=floor).cpu().numpy()
+    out["draws"] = dict(finite=bool(np.isfinite(d32).all()), gap=float(np.abs(d32 - d64).max()),
+                        tol=float(np.sqrt(floor) * float(eps.abs().max()) + GRID_TOL), floor=floor, m=m,
+                        post_sd=float(np.std(d64 - d64.mean(0), axis=0).mean()) if n_draws > 1 else None)
+
+    # Gradients: a mean error bounded by GRID_TOL, smooth at the shortest
+    # lengthscale ℓ, moves the gradient by up to GRID_TOL/ℓ per z-unit.
+    ls_min = float(gp._params["ls_total"].min())
+    gaps = {}
+    for norm in (False, True):
+        g32, g64 = res[f"predict_grid_grad(norm={norm})"][0], tw.predict_grid_grad(norm=norm)
+        for name in g64.names:
+            gap = float(np.abs(np.asarray(g32[name].values()) - np.asarray(g64[name].values())).max())
+            if norm:
+                o = name.removeprefix("|∇|")
+                scale = np.sqrt(sum(gp.stdzr[o]["σ2"] / gp.stdzr[x]["σ2"] for x in gp.continuous_dims))
+            else:
+                o, x = name.split("/")[0][2:-1], name.split("/")[1][2:-1]
+                scale = np.sqrt(gp.stdzr[o]["σ2"] / gp.stdzr[x]["σ2"])
+            gaps[name] = (gap, float(GRID_TOL / ls_min * scale))
+    out["grad"] = gaps
+
+    # A Kronecker model's dense cache: the port's α (the Kronecker solve's)
+    # beside the reference's (solved through the dense f32 factor), in the
+    # z-space gradients and means on the grid
+    if gp._structure == "Kronecker":
+        g64z = tw.predict_grad(A_grid)
+        with torch.no_grad():
+            caches = {"kron": gp._ensure_dense_cache(),
+                      "dense": posterior_cache(gp._spec, gp._params, gp._xc, gp._xk, gp._yz)}
+            m64 = tw._mean_fn(tw._params, tw._ensure_dense_cache(), xc.double(), xk)
+            means = {k: gp._mean_fn(gp._params, c, xc, xk).double() for k, c in caches.items()}
+        out["routes"] = dict(scale=float(np.abs(g64z).max()), **{
+            f"grad_{k}": float(np.abs(gp._mean_grad(gp._params, c, xc, xk) - g64z).max()) for k, c in caches.items()},
+            **{f"mean_{k}": float((m - m64).abs().max()) for k, m in means.items()})
+
+    # Central differences of the f64 twin's predict at a few grid points,
+    # against its own gradient and the model's
+    idx = np.linspace(0, len(gp.grid_points) - 1, SURFACE_FD_POINTS).astype(int)
+    A = np.asarray(_grid_tall(gp, gp.grid_points[idx]), dtype=float)
+    g64z, g32z = tw.predict_grad(A), gp.predict_grad(A)
+    cd = np.empty_like(g64z)
+    for i in range(len(gp.continuous_dims)):
+        up, dn = A.copy(), A.copy()
+        up[:, i] += SURFACE_FD_H
+        dn[:, i] -= SURFACE_FD_H
+        cd[:, i] = (tw.predict(up)[0] - tw.predict(dn)[0]) / (2 * SURFACE_FD_H)
+    scale = float(np.abs(g64z).max())
+    out["fd"] = dict(f64=float(np.abs(g64z - cd).max()) / scale, f32=float(np.abs(g32z - cd).max()),
+                     tol_f32=GRID_TOL / ls_min)
+
+    # propose(q=2): the candidates in the data's box, and the acquisition at
+    # them at f32 (the model's) and f64 (the twin's)
+    cands, value = res["propose(q=2)"][0]
+    z = torch.as_tensor(np.stack([np.asarray(cands[n].z.values()) for n in gp.continuous_dims], -1), device=dev)
+    xc_np = gp._xc.cpu().numpy()
+    lo, hi = xc_np.min(0) - 1e-6, xc_np.max(0) + 1e-6
+    with torch.no_grad():
+        a32 = float(gp.q_acquisition(2)["acq"](z.to(gp._dtype)))
+        a64 = float(tw.q_acquisition(2)["acq"](z.double()))
+    zn = z.cpu().numpy()
+    out["propose"] = dict(value=value, at32=a32, at64=a64, in_box=bool(((zn >= lo) & (zn <= hi)).all()),
+                          candidates=zn.tolist())
+    return out
+
+
+def surface_table(n):
+    """Phase 12a's problem (``make_dense_problem``) as a table: x1, x2, y."""
+    _, X, y, _, _, _ = make_dense_problem(n, np.float64)
+    return ArrayTable({"x1": X[:, 0], "x2": X[:, 1], "y": y}, outputs=["y"])
+
+
+def run_surface_b(table, device, dtype, map_kwargs=None, chees_kw=None, hmc_kw=None, grid=GRID,
+                  n_trace=SURFACE_TRACE_DRAWS, propose_kw=None):
+    """Phase 16 (b)'s user calls: ``GP.fit`` (``find_MAP``'s defaults unless
+    ``map_kwargs``), ``propose(q=4)``, ``sample()`` (ChEES at its defaults
+    unless ``chees_kw``), ``sample(sampler='hmc', **hmc_kw)``, then
+    ``draw_point_samples`` from the ChEES trace on the grid (``propose_kw``
+    as in :func:`run_surface_a`). Returns the
+    model and each call's result, seconds and peak GiB."""
+    gp = ArrayTableGP(table, outputs=["y"], dtype=dtype, device=device)
+    res = {"fit": _timed(device, lambda: gp.fit(outputs=["y"], continuous_dims=["x1", "x2"], MAP_kwargs=map_kwargs))}
+    res["propose(q=4)"] = _timed(device, lambda: gp.propose(q=4, **(propose_kw or {})))
+    res["sample()"] = _timed(device, lambda: gp.sample(**(chees_kw or {})))
+    res["sample(sampler='hmc')"] = _timed(device, lambda: gp.sample(sampler="hmc", **(hmc_kw or {})))
+    gp.prepare_grid(resolution=grid)
+    trace = res["sample()"][0]
+    res["draw_point_samples(source=trace)"] = _timed(
+        device, lambda: gp.draw_point_samples(gp.grid_points, n_samples=n_trace, source=trace))
+    return gp, res
+
+
+def check_surface_b(gp, res):
+    """(b)'s numbers: the proposal against the f64 twin, the samplers'
+    acceptance, the ChEES lengthscale medians in the data's units, the
+    trace draws' finiteness. Asserts nothing."""
+    cands, value = res["propose(q=4)"][0]
+    dev = gp._device
+    z = torch.as_tensor(np.stack([np.asarray(cands[n].z.values()) for n in gp.continuous_dims], -1), device=dev)
+    xc_np = gp._xc.cpu().numpy()
+    lo, hi = xc_np.min(0) - 1e-6, xc_np.max(0) + 1e-6
+    with torch.no_grad():
+        a32 = float(gp.q_acquisition(4)["acq"](z.to(gp._dtype)))
+        a64 = float(f64_twin(gp).q_acquisition(4)["acq"](z.double()))
+    zn = z.cpu().numpy()
+    chees, hmc = res["sample()"][0], res["sample(sampler='hmc')"][0]
+    sd_x = np.sqrt([gp.stdzr[x]["σ2"] for x in gp.continuous_dims])
+    draws = res["draw_point_samples(source=trace)"][0]
+    return dict(
+        propose=dict(value=value, at32=a32, at64=a64, in_box=bool(((zn >= lo) & (zn <= hi)).all()),
+                     candidates=zn.tolist()),
+        chees_accept=float(chees["_stats"]["mean_accept"]), hmc_accept=float(hmc["_stats"]["mean_accept"]),
+        ls_median=np.median(chees["ls_total"].reshape(-1, chees["ls_total"].shape[-1]), axis=0) * sd_x,
+        finite=bool(np.isfinite(chees["ls_total"]).all() and np.isfinite(hmc["ls_total"]).all()
+                    and np.isfinite(np.asarray(draws["y"].values())).all()),
+        draws_shape=tuple(draws.shape),
+    )
+
+
+def _log_calls(tag, res):
+    for name, (_, secs, peak) in res.items():
+        log(f"[gp_surface] {tag} {name}: {secs:.3f} s | peak {peak if peak is None else f'{peak:.2f}'} GiB")
+
+
+def phase16_model_surface(gp_a, ls_median_ops):
+    """The rest of GP's dense surface on the card through
+    tools/array_table.py's GP: (a) on phase 15 (a)'s fitted Kronecker model
+    (5,120 locations × 2 outputs, the 100×100 grid): joint grid draws,
+    mean gradients and propose(q=2); (b) on phase 12a's N = 512 problem as
+    a table: GP.fit, propose(q=4), GP.sample() (ChEES at its defaults),
+    GP.sample(sampler='hmc') at phase 13's cut, draws from the ChEES trace."""
+    t_start = time.perf_counter()
+    table_b = surface_table(SURFACE_BO_N)
+    RbfGram.launches = 0
+    with count_rbf_shapes("gp_surface") as shapes:
+        res_a = run_surface_a(gp_a)
+        gp_b, res_b = run_surface_b(table_b, "cuda", torch.float32,
+                                    hmc_kw=dict(tune=HMC_TUNE, draws=HMC_DRAWS, n_leapfrog=HMC_LEAP))
+    launches = RbfGram.launches
+    seconds = time.perf_counter() - t_start
+    shapes = dict(shapes)
+    assert launches > 0 and sum(shapes.values()) == launches, f"gp_surface: rbf_gram launches {launches}, {shapes}"
+    _log_calls("(a)", res_a)
+    _log_calls("(b)", res_b)
+
+    # (a)
+    ca = check_surface_a(gp_a, res_a)
+    dr = ca["draws"]
+    log(f"[gp_surface] (a) draws: {SURFACE_DRAWS} joint draws at {dr['m']} points, finite {dr['finite']} | floor "
+        f"{dr['floor']:.3e} (sqrt {np.sqrt(dr['floor']):.3e}) | max|f32 - f64| on the same normal block and floor "
+        f"{dr['gap']:.3e} (tol {dr['tol']:.3e}) | f64 draws' mean sd about their mean {dr['post_sd']}")
+    assert dr["finite"], "gp_surface (a): non-finite draws"
+    assert dr["gap"] <= dr["tol"], f"gp_surface (a): f32 draws {dr['gap']} from f64 (tol {dr['tol']})"
+    for name, (gap, tol) in ca["grad"].items():
+        log(f"[gp_surface] (a) grad {name}: max|f32 - f64| {gap:.3e} (tol {tol:.3e})")
+        assert gap <= tol, f"gp_surface (a): {name} f32 and f64 differ by {gap} (tol {tol})"
+    if "routes" in ca:
+        rt = ca["routes"]
+        log(f"[gp_surface] (a) Kronecker model's dense cache, f32 - f64 in z-units on the grid: gradients with the "
+            f"Kronecker solve's alpha (the port's) {rt['grad_kron']:.3e}, with alpha solved through the dense factor "
+            f"(the reference's) {rt['grad_dense']:.3e}, largest f64 entry {rt['scale']:.3e} | means "
+            f"{rt['mean_kron']:.3e} and {rt['mean_dense']:.3e}")
+    fd = ca["fd"]
+    log(f"[gp_surface] (a) central differences of predict (h {SURFACE_FD_H}, {SURFACE_FD_POINTS} grid points): f64 "
+        f"gradient {fd['f64']:.3e} of its largest entry (tol {SURFACE_FD_RTOL}) | f32 gradient max|diff| "
+        f"{fd['f32']:.3e} (tol {fd['tol_f32']:.3e})")
+    assert fd["f64"] <= SURFACE_FD_RTOL and fd["f32"] <= fd["tol_f32"], f"gp_surface (a): central differences {fd}"
+    pa = ca["propose"]
+    log(f"[gp_surface] (a) propose(q=2): value {pa['value']:.6f} | at the candidate f32 {pa['at32']:.6f} f64 "
+        f"{pa['at64']:.6f} |diff| {abs(pa['at32'] - pa['at64']):.2e} (tol {SURFACE_ACQ_TOL}) | candidates (z) "
+        f"{pa['candidates']}")
+    assert pa["in_box"] and np.isfinite(pa["value"]), f"gp_surface (a): propose {pa}"
+    assert abs(pa["at32"] - pa["at64"]) <= SURFACE_ACQ_TOL, f"gp_surface (a): acquisition f32 vs f64 {pa}"
+    assert abs(pa["value"] - pa["at32"]) <= ACQ_RAW_TOL, f"gp_surface (a): returned value {pa}"
+
+    # (b)
+    cb = check_surface_b(gp_b, res_b)
+    pb = cb["propose"]
+    aux = gp_b._fit_aux
+    log(f"[gp_surface] (b) fit N={SURFACE_BO_N}: {int(aux['evals'].sum())} evaluations, iterations per restart "
+        f"{aux['iters'].tolist()} | propose(q=4): value {pb['value']:.6f} | at the candidate f32 {pb['at32']:.6f} "
+        f"f64 {pb['at64']:.6f} |diff| {abs(pb['at32'] - pb['at64']):.2e} (tol {SURFACE_ACQ_TOL}) | ChEES acceptance "
+        f"{cb['chees_accept']:.4f} (band {CHEES_ACCEPT}) | HMC acceptance {cb['hmc_accept']:.4f} (min "
+        f"{HMC_MIN_ACCEPT}) | ChEES ls medians in the data's units {cb['ls_median'].tolist()} vs phase 13's "
+        f"{np.asarray(ls_median_ops).tolist()} (rtol {LS_MEDIAN_RTOL}) | trace draws {cb['draws_shape']}")
+    assert pb["in_box"] and np.isfinite(pb["value"]), f"gp_surface (b): propose {pb}"
+    assert abs(pb["at32"] - pb["at64"]) <= SURFACE_ACQ_TOL, f"gp_surface (b): acquisition f32 vs f64 {pb}"
+    assert CHEES_ACCEPT[0] <= cb["chees_accept"] <= CHEES_ACCEPT[1], f"gp_surface (b): ChEES {cb['chees_accept']}"
+    assert cb["hmc_accept"] >= HMC_MIN_ACCEPT, f"gp_surface (b): HMC acceptance {cb['hmc_accept']}"
+    assert np.allclose(cb["ls_median"], ls_median_ops, rtol=LS_MEDIAN_RTOL, atol=0.0), \
+        f"gp_surface (b): ls medians {cb['ls_median']} vs {ls_median_ops}"
+    assert cb["finite"] and cb["draws_shape"] == (SURFACE_TRACE_DRAWS, GRID * GRID), f"gp_surface (b): {cb}"
+    log(f"[gp_surface] phase 16 took {seconds:.1f} s (checks {time.perf_counter() - t_start - seconds:.1f} s more) | "
+        f"rbf_gram launches {launches} by shape {shapes}")
     return launches, seconds
 
 
@@ -2486,10 +2834,12 @@ def main():
     del p
     laplace_launches, _, _, lap_p, lap_r = phase11_laplace()
     bo_runs, dense = phase12_bo()
-    sampler_runs, _ = phase13_samplers(dense)
+    sampler_runs, _, chees_ls = phase13_samplers(dense)
     ess_launches, _ = phase14_ess(lap_p, lap_r)
     del lap_p
-    gp_launches, _ = phase15_model_layer()
+    gp_launches, _, gp_a = phase15_model_layer()
+    surface_launches, _ = phase16_model_surface(gp_a, chees_ls)
+    del gp_a
     sms, mhz, peak = _fp32_peak_of_card()
     log(f"[card] {sms} SMs at max {mhz:.0f} MHz: FP32 FMA peak {peak / 1e12:.1f} TFLOP/s "
         f"(bounds use the data sheet's {FP32_PEAK / 1e12:.0f})")
@@ -2505,12 +2855,13 @@ def main():
          "replaces": "gumbi_tpu/ops/pallas_kernels.py:111",
          "launches": kron_launches["total"] + iter_launches["rbf_gram"] + dense_launches["rbf_gram"]
          + fitc_launches + fitc_laplace_launches + laplace_launches + sum(r["launches"] for r in bo_runs)
-         + sampler_runs["chees"][0] + sampler_runs["hmc"][0] + ess_launches + gp_launches,
+         + sampler_runs["chees"][0] + sampler_runs["hmc"][0] + ess_launches + gp_launches + surface_launches,
          "launches_by_path": {"kronecker": kron_launches["total"], "iterative": iter_launches["rbf_gram"],
                               "dense": dense_launches["rbf_gram"], "fitc": fitc_launches,
                               "fitc_laplace": fitc_laplace_launches, "laplace": laplace_launches,
                               "bo": sum(r["launches"] for r in bo_runs), "chees": sampler_runs["chees"][0],
-                              "hmc": sampler_runs["hmc"][0], "ess": ess_launches, "gp_model": gp_launches},
+                              "hmc": sampler_runs["hmc"][0], "ess": ess_launches, "gp_model": gp_launches,
+                              "gp_surface": surface_launches},
          "launches_by_path_and_shape": {path: dict(c) for path, c in RBF_SHAPES.items()},
          "max_abs_err": rbf_max_abs, "ms": k_ms, "plain_ms": p_ms, "bound_ms": rb, "bound_fp32_ms": rb,
          "bound_by": rby,

@@ -4,15 +4,17 @@ A second package beside the JAX reference ``gumbi_tpu``. It carries the
 engine that ``GP.fit`` and ``predict_grid`` drive: kernels, Cholesky
 likelihoods with analytic backward, priors, the Kronecker MLL, L-BFGS with
 multi-restart, and posterior prediction; and the model layer on top of it
-(``GP``, ``Regressor``, the structured arrays and the ``Standardizer``).
+(``GP``, ``Regressor``, the structured arrays and the ``Standardizer``),
+with ``ParrayPlotter`` and the matplotlib styles of ``style``.
 The hand kernels are CUDA C++ for ``sm_90a`` (``csrc/``), built with nvcc
 at first use.
 
 ``import gumbi_tpu_torch`` imports torch, numpy and scipy only; never JAX or
 ``gumbi_tpu``, and pandas only when ``DataSet`` (or :mod:`.aggregation`,
 :mod:`.data`) is asked for. The model layer's names (``GP``, ``parray``,
-``uparray``, ``mvuparray``, ``Standardizer``, ``DataSet``, ...) resolve on
-first access.
+``uparray``, ``mvuparray``, ``Standardizer``, ``DataSet``, ``ParrayPlotter``,
+``__version__``, ...) resolve on first access; matplotlib is imported only
+when a plot is drawn.
 """
 
 import torch as _torch
@@ -25,8 +27,6 @@ _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
 from . import convert, ops, utils  # noqa: E402,F401
-
-__version__ = "0.1.0"
 
 # Top-level names of the model layer, as ``gumbi_tpu`` exposes them, each
 # imported on first access: name → (module, attribute).
@@ -50,8 +50,11 @@ _LAZY = {
     "DataSet": ("aggregation", "DataSet"),
     "TidyData": ("aggregation", "TidyData"),
     "WideData": ("aggregation", "WideData"),
+    "ParrayPlotter": ("plotting", "ParrayPlotter"),
+    "__version__": ("versions", "__version__"),
 }
-_LAZY_MODULES = ("models", "arrays", "array_utils", "standardizer", "aggregation", "data")
+_LAZY_MODULES = ("models", "arrays", "array_utils", "standardizer", "aggregation", "data", "plotting", "style",
+                 "versions")
 
 
 def __getattr__(name):

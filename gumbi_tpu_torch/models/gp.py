@@ -1,31 +1,38 @@
 """GP surface learning on the port's engine — the user-facing model.
 
-Port of ``gumbi_tpu/models/gp.py``'s ``GP``, its fit-to-predict path:
-:meth:`GP.fit` parses dimensions (:meth:`specify_model`), builds the
-covariance structure (:meth:`build_model`) and learns MAP hyperparameters
-(:meth:`find_MAP`) by multi-restart L-BFGS through the port's
-``fit_gp_map`` / ``fit_kron_map``; ``prepare_grid``/``predict_grid`` then
-answer from the posterior caches, and :meth:`save`/:meth:`load` use the
-reference's npz format, so a file saved by either package loads in the
-other. The model family, the structure choice (Hadamard, Kronecker
-auto-selection, Independent), the priors and the starting points are the
-reference's.
+Port of ``gumbi_tpu/models/gp.py``'s ``GP`` on its dense, Kronecker and
+Independent structures: :meth:`GP.fit` parses dimensions
+(:meth:`specify_model`), builds the covariance structure
+(:meth:`build_model`) and learns MAP hyperparameters (:meth:`find_MAP`) by
+multi-restart L-BFGS through the port's ``fit_gp_map`` / ``fit_kron_map``;
+``prepare_grid``/``predict_grid`` then answer from the posterior caches,
+:meth:`draw_point_samples`/:meth:`draw_grid_samples` draw jointly from
+them, the ``predict_grad`` family differentiates the posterior mean by
+autograd, :meth:`sample` runs ChEES or HMC over the hyperparameters and
+:meth:`propose` (``q=``) maximizes qLogNEI/qLogNEHVI; :meth:`save`/
+:meth:`load` use the reference's npz format, so a file saved by either
+package loads in the other. The model family, the structure choice
+(Hadamard, Kronecker auto-selection, Independent), the priors and the
+starting points are the reference's.
 
 The model's tensors live on one device: the CUDA card unless the caller
 passes ``device="cpu"``, where CUDA must exist or the constructor raises. The
 dtype follows the device (f32 on CUDA, f64 on the CPU) unless ``dtype=`` is
 given. On CUDA at f32 every ExpQuad Gram goes through the hand ``rbf_gram``
-kernel (``ops/kernels.py``).
+kernel (``ops/kernels.py``). Random draws come from ``torch.Generator`` objects
+seeded as the reference seeds its JAX keys: the same distributions, not the
+same numbers (``stream=`` replays any other stream).
 
 Paths of later steps raise ``NotImplementedError`` naming the step of the
 roadmap's first queue that ports them: ``sparse=True`` (12),
 ``heteroskedastic_inputs=True`` (15), ``engine='iterative'`` (16),
-``mesh=``/``shard_data=`` (19), ``sample`` (17), ``draw_*`` and
-``predict_grad*`` (9b), ``propose(q=...)`` (11).
+``mesh=``/``shard_data=`` (19).
 """
 
 from __future__ import annotations
 
+import copy
+import functools
 import json
 from dataclasses import asdict
 
@@ -37,22 +44,36 @@ from ..ops import (
     CoregTerm,
     GPSpec,
     GPTerm,
+    chees_sample,
     constrain,
+    draw_samples,
     fit_gp_map,
     fit_kron_map,
+    gram,
+    hmc_sample,
     initial_params,
     kron_cache,
     kron_predict_diag,
     ls_prior_params,
+    map_neg_logp_chains,
+    optimize_acqf,
+    optimize_qlog_nei,
     output_correlation,
     posterior_cache,
     predict_diag,
     predict_diag_chunked,
     predict_diag_level,
+    qlog_nehvi_2d,
+    qlog_nehvi_mc,
+    qlog_nei,
+    sobol_normal,
+    sobol_uniform,
+    unconstrain,
 )
+from ..ops.acquisition import make_indep_sample_fn, make_kron_sample_fn
 from ..ops.kernels import CONTINUOUS_KERNELS
 from ..utils import assert_in
-from ..utils.torch_utils import default_model_dtype, resolve_device
+from ..utils.torch_utils import TorchStream, default_model_dtype, resolve_device
 from .base import Regressor
 
 __all__ = ["GP"]
@@ -646,7 +667,16 @@ class GP(Regressor):
 
     def _ensure_dense_cache(self):
         """Dense tall-basis factorization, built lazily when a path needs
-        full covariances the Kronecker cache lacks."""
+        full covariances the Kronecker cache lacks.
+
+        For a Kronecker model its α is the Kronecker solve's, laid out on the
+        tall rows; L is the dense factor. A named divergence: the reference
+        solves α through the dense factor too. At f64 the two agree; at f32
+        the dense factor of bench.py's model (5,120 locations × 2 outputs)
+        loses digits the Kronecker solve keeps, and every mean read from
+        this cache (draws, gradients, acquisitions) would carry them
+        (``chip_smoke.py`` phase 16 prints both).
+        """
         if self._structure == "Independent":
             # There is no joint tall model: the sub-spec has no output
             # coregion and each output owns its own params/cache.
@@ -656,10 +686,19 @@ class GP(Regressor):
             )
         if self._cache is None:
             with torch.no_grad():
-                self._cache = posterior_cache(
-                    self._spec, self._params, self._xc, self._xk, self._yz, mask=self._mask
-                )
+                cache = posterior_cache(self._spec, self._params, self._xc, self._xk, self._yz, mask=self._mask)
+                if self._structure == "Kronecker":
+                    cache = cache._replace(alpha=self._kron_alpha_tall())
+                self._cache = cache
         return self._cache
+
+    def _kron_alpha_tall(self):
+        """The Kronecker cache's α (D, N) on the tall rows: row r of output
+        index o at location r mod N takes α[o, r mod N]."""
+        alpha = self._kron_cache.alpha
+        n_loc = alpha.shape[1]
+        rows = torch.arange(self._xk.shape[0], device=alpha.device)
+        return alpha[self._xk[:, self.categorical_dims.index(self.out_col)], rows % n_loc]
 
     ################################################################################
     # Prediction
@@ -698,24 +737,30 @@ class GP(Regressor):
                 )
         return _numpy(mean), _numpy(var)
 
-    def _independent_predict_tall(self, xc, xk, with_noise):
-        """Per-output prediction for tall (per-output block) point arrays."""
-        xk_np = _numpy(xk)
+    def _ind_blocks(self, xk_np):
+        """(output index, start, end) of each contiguous run of one output's
+        rows in a tall points array (the Independent structure's blocks)."""
         out_colv = xk_np[:, self._ind_out_idx]
-        means, vars_ = [], []
         i = 0
         while i < len(out_colv):
             j = int(out_colv[i])
             end = i
             while end < len(out_colv) and out_colv[end] == j:
                 end += 1
+            yield j, i, end
+            i = end
+
+    def _independent_predict_tall(self, xc, xk, with_noise):
+        """Per-output prediction for tall (per-output block) point arrays."""
+        xk_np = _numpy(xk)
+        means, vars_ = [], []
+        for j, i, end in self._ind_blocks(xk_np):
             m, v = predict_diag(
                 self._spec, self._ind_params[j], self._ind_caches[j],
                 xc[i:end], self._reduced_xk(xk_np[i:end]), with_noise=with_noise,
             )
             means.append(m)
             vars_.append(v)
-            i = end
         return torch.cat(means), torch.cat(vars_)
 
     def _kron_predict_tall(self, xc, xk, with_noise):
@@ -784,40 +829,522 @@ class GP(Regressor):
             )
         return suffix
 
+    def cross_validate(self, *args, **kwargs):
+        """:meth:`Regressor.cross_validate`, with its train and test models on
+        this model's device and dtype.
+
+        The method (a copy of the reference's) builds them as
+        ``self.__class__(dataset, outputs=..., seed=...)``, which would put
+        them on the CUDA card whatever this model's device; here it runs on a
+        shallow copy of the model whose class passes ``device=`` and
+        ``dtype=`` on.
+        """
+        cls = type(self)
+        proxy = copy.copy(self)
+        proxy.__class__ = type(cls.__name__, (cls,), {
+            "__init__": functools.partialmethod(cls.__init__, dtype=self._dtype, device=self._device),
+        })
+        return super(GP, proxy).cross_validate(*args, **kwargs)
+
     ################################################################################
-    # Later steps
+    # Full-Bayes sampling and posterior draws
     ################################################################################
 
-    def sample(self, *args, **kwargs):
-        """Hyperparameter-posterior sampling (ChEES/HMC): step 17."""
-        raise _later("GP.sample", 17)
+    def sample(
+        self,
+        draws=500,
+        tune=500,
+        chains=None,
+        seed=None,
+        n_leapfrog=32,
+        target_accept=None,
+        sampler="chees",
+        *,
+        stream=None,
+        **kwargs,
+    ):
+        """Sample the hyperparameter posterior on the model's device.
 
-    def draw_point_samples(self, *args, **kwargs):
-        """Joint posterior draws at points: step 9b."""
-        raise _later("GP.draw_point_samples", "9b")
+        ``sampler`` picks the kernel (``ops/hmc.py``):
 
-    def draw_grid_samples(self, *args, **kwargs):
-        """Joint posterior draws over the grid: step 9b."""
-        raise _later("GP.draw_grid_samples", "9b")
+        * ``'chees'`` (default) — ChEES-HMC: the trajectory length is learned
+          during warmup, the step size by dual averaging, the diagonal mass
+          by Welford; ``n_leapfrog`` is ignored and chains default to 16;
+        * ``'hmc'`` — fixed-trajectory adaptive HMC (``n_leapfrog`` steps);
+          chains default to 2.
 
-    def propose(self, target=None, acquisition="EI", *, q=None, **kwargs):
-        """Grid-based proposal toward ``target`` (``Regressor.propose``);
-        batch Bayesian optimization (``q=...``) comes with step 11."""
+        The chains advance in lockstep on the chain-batched exact objective
+        (``mll.map_neg_logp_chains``), from the MAP when the model is fitted
+        and from the prior moments when it is only built. Draws come from a
+        ``torch.Generator`` seeded with ``seed``; ``stream=`` takes any
+        object with :class:`~gumbi_tpu_torch.utils.torch_utils.TorchStream`'s
+        interface instead (the samplers' hook).
+
+        Returns (and stores as :attr:`trace`) a dict of natural-space arrays
+        with leading (chains, draws) axes, plus ``_stats`` with acceptance
+        (and for ChEES, adapted step-size/trajectory) diagnostics.
+        """
+        if sampler not in ("chees", "hmc"):
+            raise ValueError(f"sampler must be 'chees' or 'hmc', got {sampler!r}")
+        if chains is None:
+            chains = 16 if sampler == "chees" else 2
+
+        assert self._spec is not None, "Call build_model first"
+        if self._structure == "Independent":
+            raise NotImplementedError(
+                "Full-Bayes sampling is not implemented for the Independent "
+                "structure (the reference's ModelListGP backend is MAP-only, "
+                "ref gumbi/regression/botorch/GP.py); use Hadamard for HMC "
+                "over a joint multi-output model."
+            )
+        seed = self.seed if seed is None else seed
+        ls_alpha = self._tensor(self._ls_alpha)
+        ls_beta = self._tensor(self._ls_beta)
+
+        def logp(uparams):
+            return -map_neg_logp_chains(
+                self._spec, uparams, self._xc, self._xk, self._yz, ls_alpha, ls_beta, mask=self._mask
+            )
+
+        if self._params is not None:
+            q0 = unconstrain(self._params)
+        else:
+            u0s = initial_params(
+                self._spec, self._ls_alpha, self._ls_beta, 1, seed, dtype=self._dtype, device=self._device
+            )
+            q0 = {k: v[0] for k, v in u0s.items()}
+
+        generator = torch.Generator(device=self._device).manual_seed(seed)
+        common = dict(draws=draws, tune=tune, chains=chains, stream=stream, chain_batched=True)
+        if sampler == "chees":
+            usamples, stats = chees_sample(
+                logp, q0, generator,
+                target_accept=0.75 if target_accept is None else float(target_accept), **common,
+            )
+        else:
+            usamples, stats = hmc_sample(
+                logp, q0, generator, n_leapfrog=n_leapfrog,
+                target_accept=0.8 if target_accept is None else float(target_accept), **common,
+            )
+        self.trace = _numpy(constrain(usamples))
+        self.trace["_stats"] = _numpy(stats)
+        return self.trace
+
+    def _store_sample_var(self, var_name, increment_var, value):
+        """Reference var-name bookkeeping (GP.py:846-858): store draws under
+        ``var_name`` in :attr:`sample_vars`, appending '_' on collision when
+        ``increment_var`` is True, raising otherwise."""
+        if not hasattr(self, "sample_vars") or self.sample_vars is None:
+            self.sample_vars = {}
+        while var_name in self.sample_vars:
+            if not increment_var:
+                raise ValueError(
+                    f'The variable name "{var_name}" already exists in model.'
+                )
+            var_name = var_name + "_"
+        self.sample_vars[var_name] = value
+        return var_name
+
+    def draw_point_samples(
+        self, points, n_samples=1, output=None, with_noise=False, seed=None, source=None,
+        additive_level="total", var_name="posterior_samples", increment_var=True, *, stream=None,
+    ):
+        """Joint posterior draws at supplied points, returned as a parray.
+
+        ``source=None`` uses the MAP hyperparameters; passing the dict
+        returned by :meth:`sample` integrates over the hyperparameter
+        posterior (one function draw per subsampled hyperparameter draw).
+
+        Multiple outputs draw JOINTLY: the tall prediction stack carries the
+        output coordinate, so the coregion (ICM) covariance correlates the
+        outputs within each draw. For the ``Independent`` structure, outputs
+        are uncorrelated by construction and are drawn from their per-output
+        models. ``additive_level`` draws from one component's conditional of
+        an additive model (``'total'``, ``'global'`` or a categorical dim
+        name). ``var_name``/``increment_var`` mirror the reference's sample
+        bookkeeping: draws are stored in ``self.sample_vars[var_name]``,
+        appending ``'_'`` on collision when ``increment_var`` (raising
+        otherwise).
+
+        The standard-normal blocks come from a ``torch.Generator`` seeded
+        with ``seed``, walked as the reference walks its key (one block for
+        the MAP, ``fold_in(i)`` per output or per hyperparameter draw);
+        ``stream=`` takes any object with ``TorchStream``'s interface
+        instead. The trace is subsampled by ``np.random.default_rng(seed)``,
+        as in the reference.
+        Returns a parray with one layer per output, shape (n_samples, n_points).
+        """
+        if self.sparse:
+            raise _later("draws from a sparse (FITC) model", 12)
+        level = self._parse_additive_level(additive_level)
+        output = self._parse_prediction_output(output)
+        points_array, _, _ = self._prepare_points_for_prediction(points, output=output)
+        xc, xk = self._split_X(np.asarray(points_array))
+        seed = self.seed if seed is None else seed
+        if stream is None:
+            stream = TorchStream(torch.Generator(device=self._device).manual_seed(seed), self._dtype, self._device)
+        d_out = len(output)
+        n_pts = xc.shape[0] // d_out
+
+        def eps(s, n_rows, n_s=n_samples):
+            return s.normal((n_s, n_rows)).to(dtype=self._dtype, device=self._device)
+
+        with torch.no_grad():
+            if source is None or source is self.MAP:
+                if self._structure == "Independent":
+                    xk_np = _numpy(xk)
+                    blocks = []
+                    for i, name in enumerate(output):
+                        j = self._ind_output_index(name)
+                        sl = slice(i * n_pts, (i + 1) * n_pts)
+                        s = draw_samples(
+                            self._spec, self._ind_params[j], self._ind_caches[j], xc[sl],
+                            self._reduced_xk(xk_np[sl]), n_samples=n_samples, with_noise=with_noise,
+                            eps=eps(stream.fold_in(i), n_pts),
+                        )
+                        blocks.append(_numpy(s))
+                    out = np.stack(blocks, axis=1)  # (n_samples, d_out, n_pts)
+                else:
+                    samples = draw_samples(
+                        self._spec, self._params, self._ensure_dense_cache(), xc, xk, n_samples=n_samples,
+                        with_noise=with_noise, level=level, eps=eps(stream, xc.shape[0]),
+                    )
+                    out = _numpy(samples).reshape(n_samples, d_out, n_pts)
+            else:
+                # Hyperparameter-posterior-integrated draws: subsample the trace
+                trace = {k: v for k, v in source.items() if not k.startswith("_")}
+                chains, ndraws = next(iter(trace.values())).shape[:2]
+                flat = {k: np.asarray(v).reshape(chains * ndraws, *np.shape(v)[2:]) for k, v in trace.items()}
+                rng = np.random.default_rng(seed)
+                idxs = rng.choice(chains * ndraws, n_samples, replace=n_samples > chains * ndraws)
+                rows = []
+                for i, idx in enumerate(idxs):
+                    p = {k: self._tensor(np.array(v[idx])) for k, v in flat.items()}
+                    cache_i = posterior_cache(self._spec, p, self._xc, self._xk, self._yz, mask=self._mask)
+                    s = draw_samples(
+                        self._spec, p, cache_i, xc, xk, n_samples=1, with_noise=with_noise, level=level,
+                        eps=eps(stream.fold_in(i), xc.shape[0], 1),
+                    )
+                    rows.append(_numpy(s)[0])
+                out = np.stack(rows).reshape(n_samples, d_out, n_pts)
+
+        self.predictions = self.parray(
+            **{name: out[:, i] for i, name in enumerate(output)}, stdzd=True
+        )
+        self.predictions_X = points
+        self._store_sample_var(var_name, increment_var, self.predictions)
+        return self.predictions
+
+    def draw_grid_samples(self, n_samples=1, output=None, categorical_levels=None, **kwargs):
+        """Joint posterior draws over the prepared grid, reshaped to the grid."""
+        if self.grid_points is None:
+            raise ValueError("Grid must first be specified with `prepare_grid`")
+        points = self.grid_points
+        if self.categorical_dims:
+            points = self.append_categorical_points(points, categorical_levels=categorical_levels)
+        samples = self.draw_point_samples(points, n_samples=n_samples, output=output, **kwargs)
+        self.predictions = samples.reshape(-1, *self.grid_parray.shape)
+        self.predictions_X = self.predictions_X.reshape(self.grid_parray.shape)
+        return self.predictions
+
+    ################################################################################
+    # Bayesian optimization (the reference's engine acquisitions; reference
+    # gumbi/regression/botorch/GP.py:652-780 used BoTorch qLogNEI/qLogNEHVI)
+    ################################################################################
+
+    def propose(
+        self,
+        target=None,
+        acquisition="EI",
+        *,
+        q=None,
+        bounds=None,
+        maximize=True,
+        num_restarts=10,
+        raw_samples=512,
+        mc_samples=256,
+        seed=None,
+        ref_point=None,
+        sequential=False,
+        max_baseline=64,
+        **optim_kwargs,
+    ):
+        """Propose new experiments.
+
+        Two modes, matching the two reference surfaces:
+
+        * ``propose(target, acquisition='EI'|'PD')`` — grid-based proposal
+          toward a target value over existing predictions (Regressor parity).
+        * ``propose(q=...)`` — batch Bayesian optimization on the model's
+          device: smoothed qLogNEI (single output), exact-sweep qLogNEHVI
+          (two outputs), or decomposition-free QMC-box qLogNEHVI (three or
+          more outputs) over Sobol QMC samples (:meth:`q_acquisition`),
+          maximized by multi-restart L-BFGS from the best of ``raw_samples``
+          Sobol q-batches. ``sequential=True`` proposes one point at a time,
+          each joining the baseline. Returns (candidates parray,
+          acquisition value).
+        """
         if q is None:
             return super().propose(target, acquisition=acquisition)
-        raise _later("GP.propose(q=...)", 11)
 
-    def predict_grad(self, *args, **kwargs):
-        """Posterior-mean gradients: step 9b."""
-        raise _later("GP.predict_grad", "9b")
+        assert self._params is not None, "Model must be fit before proposing"
+        seed = self.seed if seed is None else seed
+        acq_kw = dict(bounds=bounds, maximize=maximize, mc_samples=mc_samples, seed=seed, ref_point=ref_point,
+                      max_baseline=max_baseline)
 
-    def predict_points_grad(self, *args, **kwargs):
-        """Posterior-mean gradients at points: step 9b."""
-        raise _later("GP.predict_points_grad", "9b")
+        def propose_one(q_now, extra_base):
+            a = self.q_acquisition(q_now, extra_base=extra_base, **acq_kw)
+            if a["nei_args"] is not None:
+                raw = sobol_uniform(raw_samples * q_now, a["lo"].shape[0], seed=seed)
+                X_raw = self._tensor(raw.reshape(raw_samples, q_now, -1)) * (a["hi"] - a["lo"]) + a["lo"]
+                return optimize_qlog_nei(
+                    self._spec, self._params, self._ensure_dense_cache(), *a["nei_args"], X_raw, a["lo"], a["hi"],
+                    num_restarts=num_restarts, maximize=maximize, **optim_kwargs,
+                )
+            return optimize_acqf(
+                a["acq"], (a["lo"], a["hi"]), q=q_now, num_restarts=num_restarts, raw_samples=raw_samples,
+                seed=seed, dtype=self._dtype, **optim_kwargs,
+            )
 
-    def predict_grid_grad(self, *args, **kwargs):
-        """Posterior-mean gradients over the grid: step 9b."""
-        raise _later("GP.predict_grid_grad", "9b")
+        if sequential and q > 1:
+            cands = []
+            for _ in range(q):
+                c, val = propose_one(1, self._tensor(np.vstack(cands)) if cands else None)
+                cands.append(_numpy(c))
+            candidates = np.vstack(cands)
+        else:
+            c, val = propose_one(q, None)
+            candidates = _numpy(c)
+
+        cand_parray = self.parray(
+            **{dim: candidates[:, i] for i, dim in enumerate(self.continuous_dims)},
+            stdzd=True,
+        )
+        return cand_parray, float(val)
+
+    def q_acquisition(self, q, bounds=None, maximize=True, mc_samples=256, seed=None, ref_point=None,
+                      max_baseline=64, extra_base=None):
+        """The acquisition that ``propose(q=...)`` maximizes, at this model's
+        MAP and dtype.
+
+        Returns a dict: ``acq`` maps z-space candidate blocks (..., q, d) to
+        values (...); ``lo``, ``hi`` bound the search box in z-space (the
+        training locations' box unless ``bounds`` is given); ``nei_args``
+        holds ``optimize_qlog_nei``'s model-side arguments for one output,
+        else None. The baseline is up to ``max_baseline`` training locations
+        subsampled by ``np.random.default_rng(seed)`` (repeated up to that
+        size when fewer), then ``extra_base`` rows; the base samples are the
+        Sobol normals of ``seed``; the reference point defaults to each
+        output's training minimum − 1e-3.
+        """
+        # The Independent structure has no joint cache: its acquisitions
+        # sample the block-diagonal model-list posterior. A Kronecker model
+        # samples through its Kronecker cache (a named divergence: the
+        # reference factors the dense tall cache, which at f32 loses digits
+        # the whitened systems keep; the same numbers at f64).
+        out_j = self.categorical_dims.index(self.out_col) if self.out_col in self.categorical_dims else None
+        joint_params = joint_cache = None
+        if self._structure == "Independent":
+            sample_fn = make_indep_sample_fn(self._spec, self._ind_params, self._ind_caches, self._ind_out_idx)
+        elif self._structure == "Kronecker":
+            sample_fn = make_kron_sample_fn(self._spec, self._params, self._kron_cache, out_j)
+        else:
+            sample_fn = None
+            joint_params, joint_cache = self._params, self._ensure_dense_cache()
+        seed = self.seed if seed is None else seed
+        d_out = len(self.outputs)
+
+        # Bounds in z-space over the continuous dims. Bucketed fits pad
+        # self._xc with zero rows — excluded here, or the search box would
+        # stretch to the z-space origin regardless of the data's range.
+        xc_train = _numpy(self._xc)
+        n_real_rows = int(_numpy(self._mask).sum()) if self._mask is not None else xc_train.shape[0]
+        if bounds is None:
+            lo, hi = xc_train[:n_real_rows].min(0), xc_train[:n_real_rows].max(0)
+        else:
+            from ..arrays import ParameterArray
+
+            if isinstance(bounds, ParameterArray):
+                b = np.atleast_2d(bounds.z.values())
+                lo, hi = b[:, 0], b[:, 1]
+            else:
+                b = np.asarray(bounds, dtype=float)
+                if b.shape[0] == 2:  # (2, d)
+                    lo, hi = b[0], b[1]
+                else:  # (d, 2)
+                    lo, hi = b[:, 0], b[:, 1]
+
+        # Baseline: subsample training locations (pruning analog), from the
+        # real rows only (bucket padding never enters the baseline), padded
+        # to ``max_baseline`` rows by repetition as in the reference.
+        if d_out == 1:
+            base_locs = xc_train[:n_real_rows]
+        elif self._structure == "Independent":
+            # Independent data can be ragged across outputs: output 0's own block
+            base_locs = _numpy(self._ind_data[0][0])
+        else:
+            # Tall layout is output-major: the first rows are output 0's locations
+            base_locs = xc_train[: n_real_rows // d_out]
+        if base_locs.shape[0] > max_baseline:
+            idx = np.random.default_rng(seed).choice(base_locs.shape[0], max_baseline, replace=False)
+            base_locs = base_locs[idx]
+        elif base_locs.shape[0] < max_baseline:
+            reps = -(-max_baseline // base_locs.shape[0])
+            base_locs = np.tile(base_locs, (reps, 1))[:max_baseline]
+        xc_b = self._tensor(base_locs)
+        if extra_base is not None:
+            xc_b = torch.cat([xc_b, extra_base])
+        nb = xc_b.shape[0]
+
+        n_cat = self._xk.shape[1]
+
+        def cat_cols(n_rows, out_idx):
+            cols = np.zeros((n_rows, n_cat), dtype=np.int64)
+            if out_j is not None:
+                cols[:, out_j] = out_idx
+            return self._index(cols)
+
+        box = dict(lo=self._tensor(lo), hi=self._tensor(hi))
+        if d_out == 1:
+            base_samples = self._tensor(sobol_normal(mc_samples, q + nb, seed=seed))
+            nei_args = (cat_cols(q, 0), xc_b, cat_cols(nb, 0), base_samples)
+
+            def acq(Xc):
+                return qlog_nei(self._spec, joint_params, joint_cache, Xc, *nei_args, maximize=maximize)
+
+            return dict(acq=acq, nei_args=nei_args, **box)
+
+        # Each location contributes one row per output (output-major)
+        base_samples = self._tensor(sobol_normal(mc_samples, d_out * (q + nb), seed=seed))
+        xk_bD = torch.cat([cat_cols(nb, j) for j in range(d_out)])
+        xc_bD = torch.cat([xc_b] * d_out)
+        xk_cD = torch.cat([cat_cols(q, j) for j in range(d_out)])
+        if ref_point is None:
+            if self._structure == "Independent":
+                halves = [_numpy(y_j) for (_, _, y_j) in self._ind_data]
+            else:
+                halves = np.split(_numpy(self._yz)[:n_real_rows], d_out)
+            ref_point = [(h.min() - 1e-3) if maximize else -(h.max() + 1e-3) for h in halves]
+        rp = self._tensor(list(ref_point))
+
+        if d_out == 2:
+            # Exact sweep-line hypervolume (differentiable a.e.)
+            def acq(Xc):
+                return qlog_nehvi_2d(
+                    self._spec, joint_params, joint_cache, torch.cat([Xc] * d_out, dim=-2), xk_cD, xc_bD, xk_bD,
+                    base_samples, rp, maximize=maximize, sample_fn=sample_fn,
+                )
+        else:
+            # D ≥ 3: decomposition-free QMC box integration
+            u_box = self._tensor(sobol_uniform(512, d_out, seed=seed + 1))
+
+            def acq(Xc):
+                return qlog_nehvi_mc(
+                    self._spec, joint_params, joint_cache, torch.cat([Xc] * d_out, dim=-2), xk_cD, xc_bD, xk_bD,
+                    base_samples, rp, u_box, d_out, maximize=maximize, sample_fn=sample_fn,
+                )
+
+        return dict(acq=acq, nei_args=None, **box)
+
+    ################################################################################
+    # Gradients of the posterior mean, by torch autograd
+    ################################################################################
+
+    def _mean_fn_single(self, xc_single, xk_single):
+        """Posterior mean at one point (the reference's per-point function;
+        :meth:`predict_grad` batches it)."""
+        return self._mean_fn(self._params, self._ensure_dense_cache(), xc_single[None, :], xk_single[None, :])[0]
+
+    def _mean_fn(self, params, cache, xc, xk):
+        """Posterior means K(x*, X)·α at the rows of ``xc``, ``xk``."""
+        return gram(self._spec, params, xc, xk, cache.xc, cache.xk) @ cache.alpha
+
+    def _mean_grad(self, params, cache, xc, xk):
+        """∂mean/∂x at every row: each row's mean depends on that row's input
+        only, so one backward of the summed means gives every row's gradient
+        (the reference's ``vmap(grad(...))``)."""
+        with torch.enable_grad():
+            x = xc.detach().clone().requires_grad_(True)
+            (g,) = torch.autograd.grad(self._mean_fn(params, cache, x, xk).sum(), x)
+        return _numpy(g)
+
+    def predict_grad(self, points_array, additive_level="total"):
+        """Raw z-space posterior-mean gradient at a tall dims-ordered array.
+
+        The lowest of the three gradient entry points: takes the
+        standardized tall points array directly (continuous columns first,
+        categorical coords after, as produced by
+        ``_prepare_points_for_prediction``) and returns the (M, d_cont)
+        array of ∂mean_z/∂x_z with no unit rescaling.
+        ``predict_points_grad`` / ``predict_grid_grad`` build on this and add
+        natural-unit partials and norms.
+        """
+        if additive_level != "total":
+            raise NotImplementedError("Prediction for additive sublevels is not yet supported.")
+        assert self._params is not None, "Model must be fit before predicting"
+        xc, xk = self._split_X(np.asarray(points_array))
+        if self._structure == "Independent":
+            # Per-output mean gradients against each sub-model's own cache
+            # (tall points arrive in contiguous per-output blocks).
+            xk_np = _numpy(xk)
+            return np.concatenate([
+                self._mean_grad(self._ind_params[j], self._ind_caches[j], xc[i:end], self._reduced_xk(xk_np[i:end]))
+                for j, i, end in self._ind_blocks(xk_np)
+            ])
+        return self._mean_grad(self._params, self._ensure_dense_cache(), xc, xk)  # (M, d_cont) in z-space
+
+    def predict_points_grad(self, points, output=None, norm=True):
+        """∂(posterior mean)/∂(continuous inputs) at points, in natural units.
+
+        Standardized-space gradients are rescaled per pair by σ_y/σ_x. With
+        ``norm=True``, returns per-output gradient norms ``|∇|<output>``.
+        """
+        output = self._parse_prediction_output(output)
+        points_array, tall_points, param_coords = self._prepare_points_for_prediction(
+            points, output=output
+        )
+        dydX = self.predict_grad(np.asarray(points_array))  # (M_total, d_cont) z-space
+
+        partials = {}
+        for name in output:
+            coord = self.categorical_coords[self.out_col][name] if param_coords else None
+            σy = np.sqrt(self.stdzr.get(name, {"σ2": 1})["σ2"])
+            if param_coords:
+                idx = (tall_points[self.out_col].values() == coord).squeeze()
+                rows = dydX[idx]
+            else:
+                rows = dydX
+            for i, x_var in enumerate(self.continuous_dims):
+                σx = np.sqrt(self.stdzr.get(x_var, {"σ2": 1})["σ2"])
+                partials[f"δ[{name}]/δ[{x_var}]"] = rows[:, i] * σy / σx
+
+        grad = self.parray(**partials)
+        if norm:
+            grad = self._get_pgrad_norm(grad)
+        return grad
+
+    def predict_grid_grad(self, output=None, categorical_levels=None, norm=True):
+        """Gradient predictions over the prepared grid."""
+        points = self.grid_points
+        if self.categorical_dims:
+            points = self.append_categorical_points(points, categorical_levels=categorical_levels)
+        grad = self.predict_points_grad(points, output=output, norm=norm)
+        return grad.reshape(self.grid_parray.shape)
+
+    @staticmethod
+    def _get_pgrad_norm(pgrad):
+        from ..arrays import ParameterArray
+        from ..utils import group_by
+
+        def get_output_name(partial_name):
+            return partial_name.split("/")[0].removeprefix("δ[").removesuffix("]")
+
+        by_output = group_by(pgrad.names, get_output_name)
+        norms = {}
+        for out_name, partial_names in by_output.items():
+            partials = np.stack([pgrad[p].values() for p in partial_names], axis=-1)
+            norms[f"|∇|{out_name}"] = np.sqrt(np.sum(np.square(partials), axis=-1))
+        return ParameterArray(**norms, stdzr=pgrad.stdzr)
 
     ################################################################################
     # Checkpointing: the reference's npz format (spec, MAP, data arrays, config)

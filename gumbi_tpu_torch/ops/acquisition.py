@@ -45,6 +45,9 @@ from scipy.stats import qmc as _scipy_qmc
 
 from ..utils.torch_utils import default_model_dtype, resolve_device
 from .kernels import GPSpec, gram, gram_diag
+from .kronecker import KronCache
+from .kronecker import _continuous_diag as kron_continuous_diag
+from .kronecker import _continuous_gram as kron_continuous_gram
 from .mll import DEFAULT_JITTER
 from .optimize import multi_restart_minimize
 from .posterior import PosteriorCache, joint_draws
@@ -58,6 +61,8 @@ __all__ = [
     "qlog_nehvi_2d",
     "qlog_nehvi_mc",
     "hv_dominated_mc",
+    "make_indep_sample_fn",
+    "make_kron_sample_fn",
     "optimize_acqf",
     "optimize_qlog_nei",
 ]
@@ -166,6 +171,52 @@ def make_indep_sample_fn(spec, params_list, cache_list, out_col_idx, jitter=DEFA
             )
         inverse = torch.as_tensor(np.argsort(np.concatenate(rows)), device=xc_joint.device)
         return torch.cat(blocks, dim=-1)[..., inverse]
+
+    return sample_fn
+
+
+def _kron_joint_mean_cov(spec: GPSpec, params, cache: KronCache, xc, out):
+    """:func:`_joint_mean_cov` for a Kronecker model, from its Kronecker
+    cache: point sets ``xc`` (..., P, d) with output indices ``out``
+    (..., P).
+
+    With K = B ⊗ Kx + Σn ⊗ I factored as D whitened systems ωₖKx + I =
+    LₖLₖᵀ (``kron_cache``), the posterior covariance of (o, x) and (o', x')
+    is B[o, o']·Kx(x, x') − Σₖ C[k, o]·C[k, o']·(Lₖ⁻¹Kx(X, x))ᵀ(Lₖ⁻¹Kx(X, x'))
+    and the mean Σᵢ B[o, i]·αᵢ·Kx(X, x): D solves against the N locations
+    where the dense form takes one against all D·N rows. The same numbers
+    at f64; at f32 the whitened systems keep digits the dense factor of a
+    strongly correlated model loses. Products, VᵀV and the subtraction in
+    f64, as there.
+    """
+    lead, (P, d) = xc.shape[:-2], xc.shape[-2:]
+    B = math.prod(lead)
+    xcf, of = xc.reshape(B * P, d), out.reshape(B * P)
+    Kxs = kron_continuous_gram(spec, params, cache.xc_locs, xcf)  # (N, B·P)
+    Bm, C = cache.B.double(), cache.C.double()
+    mean = ((cache.alpha.double() @ Kxs.double()).T * Bm[of]).sum(-1).reshape(*lead, P)
+    V = torch.linalg.solve_triangular(cache.L, Kxs.expand(cache.L.shape[0], -1, -1), upper=False).double()
+    VtV = torch.einsum("knbi,knbj->kbij", V.reshape(V.shape[0], -1, B, P), V.reshape(V.shape[0], -1, B, P))
+    ob = of.reshape(B, P)
+    Cb = C[:, ob]  # (D, B, P)
+    p64, x64 = {name: v.double() for name, v in params.items()}, xcf.double()
+    Kss = kron_continuous_gram(spec, p64, x64, x64).reshape(B, P, B, P).diagonal(dim1=0, dim2=2).permute(2, 0, 1)
+    cov = Bm[ob[:, :, None], ob[:, None, :]] * Kss - torch.einsum("kbi,kbj,kbij->bij", Cb, Cb, VtV)
+    prior = torch.diagonal(cache.B)[of] * kron_continuous_diag(spec, params, xcf)
+    return mean, cov.reshape(*lead, P, P), prior.reshape(*lead, P)
+
+
+def make_kron_sample_fn(spec, params, cache: KronCache, out_col_idx, jitter=DEFAULT_JITTER):
+    """Joint-posterior sampler for a Kronecker model, from its Kronecker
+    cache (:func:`_kron_joint_mean_cov`), in the ``sample_fn`` form the
+    multi-output acquisitions take: the output index of each row is column
+    ``out_col_idx`` of ``xk_joint``. Draws as :func:`_joint_samples`."""
+
+    def sample_fn(xc_joint, xk_joint, base_samples, d_out, q, nb):
+        out = xk_joint[..., out_col_idx].expand(xc_joint.shape[:-1])
+        mean, cov, prior = _kron_joint_mean_cov(spec, params, cache, xc_joint, out)
+        ys = joint_draws(mean, cov, prior.double(), jitter, eps=base_samples.double())
+        return ys.to(xc_joint.dtype)
 
     return sample_fn
 

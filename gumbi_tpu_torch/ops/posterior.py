@@ -28,6 +28,7 @@ __all__ = [
     "predict_cov",
     "predict_cov_level",
     "draw_samples",
+    "draw_floor",
     "joint_draws",
 ]
 
@@ -145,21 +146,41 @@ def draw_samples(
     draws from one additive component's conditional; components carry no
     observation noise.
 
-    The standard-normal block comes from ``generator`` (a
-    ``torch.Generator`` on the points' device), or is passed in as ``eps``
-    (n_samples, M). The reference draws it from a JAX key, which torch
-    cannot reproduce: with the same ``eps`` the two packages give the same
-    draws, with a generator the same distribution.
+    The covariance is factored with :func:`draw_floor` on its diagonal: the
+    reference's ``jitter`` at f64 (so the draws are the reference's), and
+    at f32 the floor that keeps a noise-free joint covariance of thousands
+    of grid points factorable (a named divergence: the reference's bare
+    jitter gives NaN draws there). The standard-normal block comes from
+    ``generator`` (a ``torch.Generator`` on the points' device), or is
+    passed in as ``eps`` (n_samples, M). The reference draws it from a JAX
+    key, which torch cannot reproduce: with the same ``eps`` the two
+    packages give the same draws, with a generator the same distribution.
     """
     if level is not None:
         mean, cov = predict_cov_level(spec, params, cache, xc_new, xk_new, level=level)
+        prior = _term_diag(spec, _term(spec, level), params, xc_new, xk_new)
     else:
         mean, cov = predict_cov(spec, params, cache, xc_new, xk_new, with_noise=with_noise)
-    cov.diagonal().add_(jitter)
+        prior = gram_diag(spec, params, xc_new, xk_new)
+    cov.diagonal().add_(draw_floor(cov, prior, jitter))
     Lss = linalg.safe_cholesky(cov)
     if eps is None:
         eps = torch.randn((n_samples, mean.shape[0]), dtype=mean.dtype, device=mean.device, generator=generator)
     return mean[None, :] + eps @ Lss.T
+
+
+def draw_floor(cov, prior_diag, jitter):
+    """The diagonal floor of a joint covariance before its factor:
+    max(jitter, M·eps_dtype·mean(prior_diag)) for ``cov`` (..., M, M), one
+    per batch entry; the relative rule of ``fitc._stabilized_kuu``.
+
+    The reference's jitter wherever it clears the dtype's rounding of
+    ``cov`` (always at f64 below M·mean prior variance ≈ 4.5e9). At f32 the
+    rounding of a covariance whose prior variance is O(1) over thousands of
+    points takes its smallest eigenvalues below −1e-6, and the bare jitter
+    factors none of them.
+    """
+    return torch.clamp(cov.shape[-1] * torch.finfo(cov.dtype).eps * prior_diag.mean(-1), min=jitter)
 
 
 def joint_draws(mean, cov, prior_diag, jitter, generator=None, n_samples=1, eps=None):
@@ -167,20 +188,16 @@ def joint_draws(mean, cov, prior_diag, jitter, generator=None, n_samples=1, eps=
     the draws of the sparse and Laplace posteriors, and the acquisitions'
     joint samples. Leading batch axes of ``mean`` (..., M), ``cov``
     (..., M, M) and ``prior_diag`` (..., M) give (..., n_samples, M), each
-    batch entry with its own floor.
-
-    floor = max(jitter, M·eps_dtype·mean(prior_diag)), the relative rule of
-    ``fitc._stabilized_kuu``: the reference's jitter wherever it clears the
-    dtype's rounding of ``cov`` (always at f64, so the draws are the
-    reference's). A named divergence: at f32 a latent covariance whose
-    prior variance is tens of units loses more than 1e-6 of its smallest
-    eigenvalue to rounding, and the reference's floor gives NaN draws
-    (``tools/probe_laplace_precision.py`` measures the sparse one).
-    ``eps`` (n_samples, M) is the standard-normal block, or it comes from
-    ``generator`` (the reference draws it from a JAX key).
+    batch entry with its own :func:`draw_floor`: the reference's jitter at
+    f64, so the draws are the reference's. A named divergence: at f32 a
+    latent covariance whose prior variance is tens of units loses more than
+    1e-6 of its smallest eigenvalue to rounding, and the reference's floor
+    gives NaN draws (``tools/probe_laplace_precision.py`` measures the
+    sparse one). ``eps`` (n_samples, M) is the standard-normal block, or it
+    comes from ``generator`` (the reference draws it from a JAX key).
     """
     m = cov.shape[-1]
-    floor = torch.clamp(m * torch.finfo(cov.dtype).eps * prior_diag.mean(-1), min=jitter)
+    floor = draw_floor(cov, prior_diag, jitter)
     L = linalg.cholesky_nan(cov + floor[..., None, None] * torch.eye(m, dtype=cov.dtype, device=cov.device))
     if eps is None:
         eps = torch.randn((n_samples, m), dtype=mean.dtype, device=mean.device, generator=generator)

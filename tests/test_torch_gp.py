@@ -218,13 +218,6 @@ LATER = {
     "mesh": lambda gp: gp.find_MAP(mesh=object()),
     "shard_data": lambda gp: gp.find_MAP(shard_data=True),
     "predict_mesh": lambda gp: gp.predict(np.zeros((1, 1)), mesh=object()),
-    "sample": lambda gp: gp.sample(),
-    "draw_point_samples": lambda gp: gp.draw_point_samples(gp.grid_points),
-    "draw_grid_samples": lambda gp: gp.draw_grid_samples(),
-    "propose_q": lambda gp: gp.propose(q=1),
-    "predict_grad": lambda gp: gp.predict_grad(np.zeros((1, 1))),
-    "predict_points_grad": lambda gp: gp.predict_points_grad(gp.grid_points),
-    "predict_grid_grad": lambda gp: gp.predict_grid_grad(),
 }
 
 
