@@ -211,7 +211,35 @@ Phases (any failure raises and ends the run with a nonzero exit code):
    0.5, the ChEES lengthscale medians (in the data's units) within rtol
    0.35 of phase 13's, finite trace draws of shape (16, 10,000); the
    kernel launched.
-17. Print the card, the kernels' JSON line, then ``{"ok": true, ...}`` last.
+17. bench_iterative50k.py's campaign through ``GP`` (f32, N = 50,000, the
+   table x1, x2, y of ``make_iter_data``): ``fit`` with
+   ``engine='iterative'`` at the bench's ``IterConfig`` (block 2,500, rank
+   512, 64 probes, tol 1e-2, CG cap 256, LOVE rank 512), 32 coarse restarts
+   on 2,048 rows (maxiter 40), the full-N polish (maxiter 40) on its
+   recovery ladder and the LOVE cache, then ``predict_grid`` on the 100×100
+   grid (``with_noise=False``). Prints ``GP.fit``'s phase seconds, the
+   coarse iterations, the polish's iterations, evaluations and their
+   regimes, the ladder rung, ``polish_fallback``, the launches of all three
+   kernels (``rbf_gram`` by shape), peak GiB and the MAP beside phase 6's.
+   Checks: no dense cache, no fallback, a finite grid, the symmetric kernel
+   launched in the fit and the general one in the predict, the shape
+   counts summing to the total; then, with the fit's buffers freed, the
+   exact f64 dense Cholesky at full N (a 20 GB Gram and its factor): the
+   iterative objective within 5e-4 relative of it, the GP's means at 512
+   grid points within 1e-2 (standardized) of the exact posterior and its
+   LOVE variances within a median 5%.
+18. bench_fitc50k.py's problem through ``GP(sparse=True)`` (f32,
+   N = 50,000): ``build_model(sparse=True, n_u=512)`` (k-means over all
+   50,000 rows, 25 iterations, as the reference's ``select_inducing``),
+   ``find_MAP(n_restarts=8, maxiter=60)``, then the 200-point line through
+   ``predict_points`` and 4 ``draw_point_samples``. Prints the phase
+   seconds (k-means inside ``build_model``), iterations and evaluations
+   per restart, peak GiB and ``rbf_gram`` launches by shape. Checks: the
+   f32 objective within 0.005 nats/point of f64 at the same MAP and
+   inducing points, the shape counts summing to the total, a finite line
+   mean and variance (RMSE against the noise-free surface printed), finite
+   draws.
+19. Print the card, the kernels' JSON line, then ``{"ok": true, ...}`` last.
    Each kernel's ``bound_ms`` is the largest of its bytes over 3.35 TB/s,
    its product flops as three TF32 passes over 495 TFLOP/s, and its other
    operations over the 67 TFLOP/s FP32 peak; ``bound_fp32_ms`` is the
@@ -313,7 +341,14 @@ from gumbi_tpu_torch.ops.hopper_kernels import (  # noqa: E402
     sym_matvec_fits,
     sym_product_check,
 )
-from gumbi_tpu_torch.ops.iterative import _row_fn, pivoted_cholesky  # noqa: E402
+from gumbi_tpu_torch.ops.iterative import (  # noqa: E402
+    POSTERIOR_TOL,
+    _make_matvec,
+    _make_precond,
+    _row_fn,
+    pcg,
+    pivoted_cholesky,
+)
 from gumbi_tpu_torch.ops.kronecker import _continuous_gram, _whitened_eig, _whitened_systems, kron_parts  # noqa: E402
 from gumbi_tpu_torch.ops.mll import DEFAULT_JITTER, _noisy_gram  # noqa: E402
 from gumbi_tpu_torch.ops.posterior import draw_floor  # noqa: E402
@@ -331,6 +366,7 @@ from gumbi_tpu_torch.tools.fitc_problem import (  # noqa: E402
     make_fitc_problem,
     problem_at,
 )
+from gumbi_tpu_torch.tools.iter_problem import exact_f64_posterior, make_iter_data  # noqa: E402
 from gumbi_tpu_torch.utils.profiling import timings  # noqa: E402
 from gumbi_tpu_torch.utils.torch_utils import TorchStream  # noqa: E402
 
@@ -427,6 +463,20 @@ def _product_check(label, c, a, b):
     d_kp = float(((c - plain).double().abs() / scale).max())
     log(f"[product] {label}: max|kernel-f64|/(|a||b|) {e_k:.3e} | 3xTF32 plain {e_p:.3e} | f32 matmul {e_32:.3e} | "
         f"one TF32 pass {e_1:.3e} | kernel vs plain {d_kp:.3e}")
+    if not (e_k <= PRODUCT_TOL and d_kp <= PRODUCT_TOL and e_k < e_1 / 16):
+        # What the matmul precision state was, and whether the reference
+        # products themselves repeat on the same tensors
+        log(f"[product] {label} FAILED: torch.backends.cuda.matmul.allow_tf32="
+            f"{torch.backends.cuda.matmul.allow_tf32} | float32 matmul precision "
+            f"{torch.get_float32_matmul_precision()}")
+        for attempt in (1, 2):
+            torch.cuda.synchronize()
+            ref2 = a.double() @ b.double().T
+            f32 = a @ b.T
+            torch.cuda.synchronize()
+            log(f"[product] {label} re-run {attempt}: max|f64 - first f64| {float((ref2 - ref).abs().max()):.3e} | "
+                f"f32 matmul vs first f64 {err(f32):.3e} | f64 vs a CPU f64 product "
+                f"{float((ref2.cpu() - a.double().cpu() @ b.double().cpu().T).abs().max()):.3e}")
     assert e_k <= PRODUCT_TOL and d_kp <= PRODUCT_TOL, f"3xTF32 product {label} is off: {e_k}, {d_kp}"
     assert e_k < e_1 / 16, f"3xTF32 product {label} is no better than one TF32 pass: {e_k} against {e_1}"
     return e_k
@@ -1015,21 +1065,14 @@ ITER_TOL, ITER_MAXITER, ITER_QUAD, LOVE_RANK = 1e-2, 256, 32, 512
 ITER_RESTARTS, ITER_COARSE_N, ITER_COARSE_ITERS, ITER_POLISH_ITERS = 32, 2048, 40, 40
 FIT_TOL = 1e-8  # GP.find_MAP's default tol, the coarse and polish ftol
 BENCH_LS = (0.30, 0.35)  # bench_iterative50k.py's evaluation point
-# At BENCH_LS the f32 pivoted Cholesky of rank 512 is exhausted on the card
-# (Woodbury, no CG), so the objective phase adds a shorter lengthscale
-# where it is not, and PCG + SLQ run at full N through the sym kernel.
+# At BENCH_LS the f32 pivoted Cholesky of rank 512 reads exhausted on the
+# card but its Woodbury solve misses tol, so a few PCG sweeps run; the
+# objective phase adds a shorter lengthscale where the factorization is not
+# exhausted and PCG + SLQ run to convergence at full N through the sym kernel.
 CG_LS = (0.10, 0.12)
 CHOL_N = 16_384
 ANCHOR_TOL = 5e-4  # |iterative − Cholesky| / |Cholesky| at CHOL_N
 LOVE_MEDIAN_TOL = 0.05  # median |LOVE − exact| / exact variance at CHOL_N
-
-
-def make_iter_data(n, seed=0):
-    """bench_iterative50k.py's make_data: same seed, same draws."""
-    rng = np.random.default_rng(seed)
-    X = rng.uniform(-2, 2, size=(n, 2)).astype(np.float32)
-    y = (np.sin(1.3 * X[:, 0]) * np.cos(0.9 * X[:, 1]) + rng.normal(0, 0.1, n)).astype(np.float32)
-    return X, y
 
 
 def _iter_spec():
@@ -1150,7 +1193,7 @@ def run_iter_campaign(device, dtype, n=ITER_N, block=ITER_BLOCK, rank=ITER_RANK,
     def objective(u):
         info = {}
         f = iter_map_neg_logp(spec, u, xc, xk, y, la_t, lb_t, pn, pk, cfg, info=info)
-        evals.append((info["exhausted"], info["iters"], float(info["rel_res"])))
+        evals.append((info["exhausted"], info["iters"], info["woodbury_rel"]))
         return f
 
     counts = [_counts()]
@@ -1189,17 +1232,27 @@ def run_iter_campaign(device, dtype, n=ITER_N, block=ITER_BLOCK, rank=ITER_RANK,
                 phases={"coarse_s": t1 - t0, "polish_s": t2 - t1, "cache_s": t3 - t2, "predict_s": t4 - t3})
 
 
+# E: exhausted, the Woodbury solve kept; W: the factorization read exhausted
+# but the Woodbury solve missed tol, so PCG + SLQ ran; C: the CG regime
+REGIME_KEY = "E = exhausted/Woodbury, W = exhausted gate, Woodbury missed tol → CG, C = CG"
+
+
+def _regimes(exhausted, woodbury_rel):
+    return "".join("E" if e else ("C" if np.isnan(w) else "W") for e, w in zip(exhausted, woodbury_rel))
+
+
 def _log_campaign(label, r):
     ph = r["phases"]
-    regimes = "".join("E" if e else "C" for e, _, _ in r["evals"])
+    regimes = _regimes([e for e, _, _ in r["evals"]], [w for _, _, w in r["evals"]])
     cg = [it for _, it, _ in r["evals"]]
     log(f"[iter] campaign {label}: coarse {ph['coarse_s']:.3f} s ({len(r['aux_c']['iters'])} restarts @"
         f"{len(r['idx'])}, iters {r['aux_c']['iters'].tolist()}) | polish {ph['polish_s']:.3f} s "
         f"({r['polish_iters']} iterations, {len(r['evals'])} evaluations) | cache {ph['cache_s']:.3f} s "
-        f"(regime {'exhausted' if r['cache_info']['exhausted'] else 'CG'}, "
-        f"CG iters {r['cache_info']['iters']}) | predict {ph['predict_s']:.3f} s ({r['xg'].shape[0]}-pt grid) | "
+        f"(regime {'exhausted' if r['cache_info']['exhausted'] else 'CG'}, CG iters {r['cache_info']['iters']}, "
+        f"Woodbury residual {r['cache_info']['woodbury_rel']:.3e}) | predict {ph['predict_s']:.3f} s "
+        f"({r['xg'].shape[0]}-pt grid) | "
         f"total {sum(ph.values()):.3f} s")
-    log(f"[iter] polish evaluations (E = exhausted/Woodbury, C = CG): {regimes} | CG iters {cg}")
+    log(f"[iter] polish evaluations ({REGIME_KEY}): {regimes} | CG iters {cg}")
     log(f"[iter] launches {label}: {r['launches']}")
     log(f"[iter] MAP ls {constrain(r['u_best'])['ls_total'].tolist()} | f_best {r['f_best']:.4f} "
         f"(coarse winner {r['f_coarse']:.4f} on the subsample)")
@@ -2797,6 +2850,254 @@ def phase16_model_surface(gp_a, ls_median_ops):
     return launches, seconds
 
 
+# ------------------------------------------------------------------
+# Phases 17-18: GP's two large-N regressors (engine='iterative', sparse=True)
+# ------------------------------------------------------------------
+
+# bench_iterative50k.py:232-242's fit through GP (the staged campaign of phase 6)
+GP_ITER_MAP = dict(engine="iterative", n_restarts=ITER_RESTARTS, maxiter=ITER_COARSE_ITERS, seed=0,
+                   coarse_n=ITER_COARSE_N, polish_maxiter=ITER_POLISH_ITERS)
+ANCHOR_POINTS = 512  # grid points of the exact f64 posterior
+GP_SPARSE_MAP = dict(n_restarts=FITC_RESTARTS, maxiter=FITC_MAXITER)  # phase 9's restarts, find_MAP's tol
+GP_SPARSE_DRAWS = 4
+
+
+def gp_iter_config(block=ITER_BLOCK, rank=ITER_RANK, probes=ITER_PROBES, love_rank=LOVE_RANK):
+    """bench_iterative50k.py's IterConfig (chip_smoke's ITER_* constants)."""
+    return IterConfig(maxiter=ITER_MAXITER, tol=ITER_TOL, n_probes=probes, precond_rank=rank, quad_steps=ITER_QUAD,
+                      block=block, love_rank=love_rank)
+
+
+def xy_table(X, y):
+    """Columns x1, x2 (inputs) and y (output) as float64: the table a user
+    would hand ``GP``."""
+    X = np.asarray(X, dtype=np.float64)
+    return ArrayTable({"x1": X[:, 0], "x2": X[:, 1], "y": np.asarray(y, dtype=np.float64)}, outputs=["y"])
+
+
+def _gp_fit(table, device, dtype, build_kw, map_kw):
+    """``ArrayTableGP(table).fit(...)`` of y on (x1, x2): the model, its
+    ``GP.fit`` phase seconds and the launches of the three kernels."""
+    timings.clear()
+    c0 = _counts()
+    gp = ArrayTableGP(table, outputs=["y"], dtype=dtype, device=device)
+    gp.fit(outputs=["y"], continuous_dims=["x1", "x2"], MAP_kwargs=map_kw, **build_kw)
+    _sync(device)
+    return gp, timings.last(), _delta(c0, _counts())
+
+
+def run_gp_iterative(table, device, dtype, cfg, map_kw=GP_ITER_MAP, grid=GRID):
+    """bench_iterative50k.py's campaign through ``GP``: ``fit`` with
+    ``engine='iterative'`` (staged: coarse Cholesky restarts → full-N polish
+    on its recovery ladder → LOVE cache), then ``prepare_grid`` and
+    ``predict_grid(with_noise=False)``. Returns the model, the grid, the
+    stage seconds, peak GiB and each part's launches."""
+    _peak_reset(device)
+    gp, stages, fit_launches = _gp_fit(table, device, dtype, {}, dict(map_kw, iter_config=cfg))
+    c0 = _counts()
+    t0 = time.perf_counter()
+    gp.prepare_grid(resolution=grid)
+    y = gp.predict_grid(with_noise=False)
+    _sync(device)
+    stages["predict"] = time.perf_counter() - t0
+    return dict(gp=gp, y=y, stages=stages, peak_gib=_peak_gib(device),
+                launches={"fit": fit_launches, "predict": _delta(c0, _counts())})
+
+
+def anchor_gp_iterative(gp, n_points=ANCHOR_POINTS, seed=7):
+    """Check 2 of phase 17: the iterative fit's objective and posterior
+    against the exact f64 dense ones at the fitted parameters, on the GP's
+    own standardized rows. Returns the relative objective gap, the largest
+    standardized mean gap at ``n_points`` grid points (drawn with
+    ``default_rng(seed)``), the median relative LOVE variance error, the
+    share of grid points whose LOVE variance is not below the exact one,
+    and the mean gaps of the α the reference would take (``ref_alpha``)."""
+    arr, _, _ = gp._prepare_points_for_prediction(gp.grid_points, output=gp.outputs)
+    idx = np.sort(np.random.default_rng(seed).choice(arr.shape[0], min(n_points, arr.shape[0]), replace=False))
+    m32, v32 = gp.predict(np.asarray(arr)[idx], with_noise=False)
+    xs, xks = gp._split_X(np.asarray(arr)[idx])
+    f64, mean, var, _ = exact_f64_posterior(gp._spec, gp._params, gp._xc, gp._xk, gp._yz, gp._ls_alpha, gp._ls_beta,
+                                         xs, xks)
+    me, ve = mean.cpu().numpy(), var.cpu().numpy()
+    return dict(f_iter=gp._neg_logp, f64=f64, rel=abs(gp._neg_logp - f64) / abs(f64),
+                dmean=float(np.abs(np.asarray(m32, dtype=np.float64) - me).max()),
+                love_med=float(np.median(np.abs(np.asarray(v32, dtype=np.float64) - ve) / np.maximum(ve, 1e-12))),
+                conservative=float(np.mean(np.asarray(v32, dtype=np.float64) >= ve - 1e-6)), m=len(idx),
+                ref_alpha=reference_alpha_gaps(gp, xs, xks, mean))
+
+
+@torch.no_grad()
+def reference_alpha_gaps(gp, xs, xks, mean_exact):
+    """The posterior mean's largest gap from the exact one at ``xs`` with α
+    solved as the reference solves it at this fit, from the fit's own
+    preconditioner: the Woodbury solve P⁻¹y (its exhausted regime, whenever
+    the factorization reads exhausted) and PCG to the config's tol (its CG
+    regime); the cross-Gram in f64, so only α differs."""
+    st, cache = gp._iter_state, gp._iter_cache
+    cfg, n = st["cfg"], int(gp._xc.shape[0])
+    psolve = _make_precond(cache["L"], cache["d"])[0]
+    matvec = _make_matvec(gp._spec, cfg, gp._params, st["xc"], st["xk"], cache["d"], st["mask"])
+    b = (st["yz"] if st["mask"] is None else st["yz"] * st["mask"])[:, None]
+    X, *_, iters, rel = pcg(matvec, psolve, b, cfg.maxiter, cfg.tol)
+    p64 = {k: v.double() for k, v in gp._params.items()}
+    ks = gram(gp._spec, p64, xs.double(), xks, gp._xc.double(), gp._xk)
+
+    def gap(alpha):
+        return float((ks @ alpha[:n].double() - mean_exact).abs().max())
+
+    return dict(woodbury=gap(psolve(b)[:, 0]), pcg=gap(X[:, 0]), pcg_iters=iters, pcg_rel=float(rel), tol=cfg.tol)
+
+
+def _log_gp_stages(tag, stages):
+    log(f"[{tag}] GP.fit phases: " + " | ".join(f"{k} {v:.3f} s" for k, v in stages.items()))
+
+
+def phase17_gp_iterative(ops_map_ls):
+    """bench_iterative50k.py's campaign through GP at N = 50,000 (f32):
+    fit (engine='iterative', staged, its recovery ladder) → predict_grid on
+    the 100×100 grid; then the exact f64 anchor at full N."""
+    t_start = time.perf_counter()
+    X, yv = make_iter_data(ITER_N)
+    table = xy_table(X, yv)
+    for k in (RbfGram, FusedMatvec, FusedMatvecSym):
+        k.launches = 0
+    with count_rbf_shapes("gp_iterative") as shapes:
+        r = run_gp_iterative(table, "cuda", torch.float32, gp_iter_config())
+    launches = _counts()
+    seconds = time.perf_counter() - t_start
+    shapes = dict(shapes)
+    gp, aux = r["gp"], r["gp"]._fit_aux
+    regimes = _regimes(aux["polish_exhausted"], aux["polish_woodbury_rel"])
+    _log_gp_stages("gp_iter", r["stages"])
+    log(f"[gp_iter] coarse restarts {len(aux['iters'])} @{ITER_COARSE_N}, iterations {aux['iters'].tolist()} | polish "
+        f"{int(aux['polish_iters'])} iterations, {len(regimes)} evaluations on ladder rung {int(aux['polish_rung'])} "
+        f"(start restart {int(aux['polish_start_restart'])}, CG cap {gp._iter_state['cfg'].maxiter}) | polish_fallback "
+        f"{bool(aux['polish_fallback'])} | posterior solve: gate {'exhausted' if aux['cache_exhausted'] else 'CG'}, "
+        f"{int(aux['cache_cg_iters'])} CG iterations, rel_res {float(aux['cache_rel_res']):.2e}, Woodbury residual "
+        f"{float(aux['cache_woodbury_rel']):.3e} | peak "
+        f"{r['peak_gib']:.2f} GiB")
+    log(f"[gp_iter] polish evaluations ({REGIME_KEY}): {regimes} | CG iters "
+        f"{aux['polish_cg_iters'].tolist()}")
+    log(f"[gp_iter] launches fit (incl. cache) {r['launches']['fit']} | predict {r['launches']['predict']} | total "
+        f"{launches} | rbf_gram by shape {shapes}")
+    log(f"[gp_iter] MAP ls (z) {gp.MAP['ls_total'].tolist()} eta {float(gp.MAP['η_total']):.4f} sigma "
+        f"{float(gp.MAP['σ']):.4f} | neg_logp {gp._neg_logp:.4f} | phase 6's ops-level MAP ls {ops_map_ls} (its own "
+        f"z-scoring and prior subsample: logged, not compared)")
+
+    # Check 1
+    y = r["y"]
+    assert gp._cache is None and gp._iter_cache is not None, "gp_iter: the iterative fit built a dense cache"
+    assert not bool(aux["polish_fallback"]), f"gp_iter: the polish fell back to the subsample MAP: {aux}"
+    assert y.shape == (GRID, GRID) and np.isfinite(y.μ).all() and np.isfinite(y.σ2).all() and (y.σ2 >= 0).all()
+    assert sum(shapes.values()) == launches["rbf_gram"] > 0, f"gp_iter: rbf_gram launches {launches}, {shapes}"
+    assert r["launches"]["fit"]["fused_stationary_matvec_sym"] > 0, \
+        f"gp_iter: no sym launch in the fit: {r['launches']}"
+    assert r["launches"]["predict"]["fused_stationary_matvec"] > 0, \
+        f"gp_iter: no general launch in the predict: {r['launches']}"
+
+    # Check 2: the exact f64 anchor at full N, with the fit's buffers freed first
+    torch.cuda.empty_cache()
+    _peak_reset("cuda")
+    t0 = time.perf_counter()
+    a = anchor_gp_iterative(gp)
+    anchor_s = time.perf_counter() - t0
+    log(f"[gp_iter] anchor N={ITER_N} (f64 dense Cholesky, {anchor_s:.1f} s, peak {_peak_gib('cuda'):.2f} GiB): "
+        f"iterative {a['f_iter']:.4f} | Cholesky {a['f64']:.4f} | rel err {a['rel']:.3e} (tol {ANCHOR_TOL}) | "
+        f"{a['m']} grid points: max|mean - exact| {a['dmean']:.3e} (standardized, tol {GRID_TOL}) | LOVE rank "
+        f"{LOVE_RANK} var median rel err {a['love_med']:.4f} (tol {LOVE_MEDIAN_TOL}), {100 * a['conservative']:.1f}% "
+        f"conservative | phase 17 took {seconds:.1f} s before the anchor")
+    ra = a["ref_alpha"]
+    log(f"[gp_iter] posterior mean gap with the reference's α at this fit: Woodbury P⁻¹y (its exhausted regime) "
+        f"{ra['woodbury']:.3e} | PCG to tol {ra['tol']:g} (its CG regime; {ra['pcg_iters']} iterations, rel_res "
+        f"{ra['pcg_rel']:.2e}) {ra['pcg']:.3e} | the port's (Woodbury gate, PCG to {POSTERIOR_TOL:g}) {a['dmean']:.3e}")
+    assert a["rel"] <= ANCHOR_TOL, f"gp_iter: iterative objective off the f64 Cholesky one: {a['rel']}"
+    assert a["dmean"] <= GRID_TOL, f"gp_iter: grid means off the exact posterior: {a['dmean']}"
+    assert a["love_med"] <= LOVE_MEDIAN_TOL, f"gp_iter: LOVE variances off the exact ones: median {a['love_med']}"
+    del gp, r
+    torch.cuda.empty_cache()
+    return launches, seconds
+
+
+def fitc_table(n=FITC_N):
+    """bench_fitc50k.py's rows (``make_fitc_problem``'s draws at f32) as a table."""
+    p = make_fitc_problem(n, "cpu", torch.float32, kmeans=False)
+    return xy_table(p["xc"].numpy(), p["y"].numpy()), p["g"]
+
+
+def run_gp_sparse(table, g, device, dtype, n_u=FITC_NU, map_kw=GP_SPARSE_MAP, n_draws=GP_SPARSE_DRAWS):
+    """bench_fitc50k.py's problem through ``GP(sparse=True)``: ``fit`` with
+    ``n_u`` k-means inducing points (``build_model``, over every real row),
+    then the 200-point line (x1 = g, x2 = 0) through ``predict`` and
+    ``draw_point_samples``."""
+    _peak_reset(device)
+    gp, stages, fit_launches = _gp_fit(table, device, dtype, dict(sparse=True, n_u=n_u), map_kw)
+    c0 = _counts()
+    line = gp.parray(x1=np.asarray(g, dtype=np.float64), x2=np.zeros(len(g)))
+    t0 = time.perf_counter()
+    pred = gp.predict_points(line)
+    _sync(device)
+    t1 = time.perf_counter()
+    draws = gp.draw_point_samples(line, n_samples=n_draws, seed=0)
+    _sync(device)
+    stages.update(predict=t1 - t0, draws=time.perf_counter() - t1)
+    return dict(gp=gp, pred=pred, draws=draws, stages=stages, peak_gib=_peak_gib(device),
+                launches={"fit": fit_launches, "predict": _delta(c0, _counts())})
+
+
+def sparse_f64_gap(gp):
+    """The fitted sparse model's f32 FITC objective against f64 at the same
+    MAP and inducing points, in nats per point."""
+    u32 = unconstrain(gp._params)
+    dev = gp._xc.device
+
+    def f(u, dt):
+        la, lb = (torch.as_tensor(a, dtype=dt, device=dev) for a in (gp._ls_alpha, gp._ls_beta))
+        return float(fitc_neg_logp(gp._spec, u, gp._xc.to(dt), gp._xk, gp._xu_c.to(dt), gp._xu_k, gp._yz.to(dt),
+                                   la, lb))
+
+    with torch.no_grad():
+        f32, f64 = f(u32, gp._dtype), f({k: v.double() for k, v in u32.items()}, torch.float64)
+    return f32, f64, abs(f32 - f64) / gp._yz.shape[0]
+
+
+def phase18_gp_sparse():
+    """bench_fitc50k.py's problem through GP(sparse=True) at N = 50,000,
+    M = 512 (f32): build (k-means over all rows) → fit → the line through
+    predict and 4 draws."""
+    t_start = time.perf_counter()
+    table, g = fitc_table()
+    RbfGram.launches = 0
+    with count_rbf_shapes("gp_sparse") as shapes:
+        r = run_gp_sparse(table, g, "cuda", torch.float32)
+    launches = RbfGram.launches
+    seconds = time.perf_counter() - t_start
+    shapes = dict(shapes)
+    gp, aux = r["gp"], r["gp"]._fit_aux
+    _log_gp_stages("gp_sparse", r["stages"])
+    log(f"[gp_sparse] build_model holds the k-means: {FITC_N} real rows, 25 iterations, {FITC_NU} centers | "
+        f"{len(aux['iters'])} restarts, iterations {aux['iters'].tolist()}, evaluations {aux['evals'].tolist()} | "
+        f"values {[round(float(v), 4) for v in aux['all_values']]} (winner {aux['best_restart']}) | peak "
+        f"{r['peak_gib']:.2f} GiB | rbf_gram launches {launches} (fit {r['launches']['fit']['rbf_gram']}, predict and "
+        f"draws {r['launches']['predict']['rbf_gram']}) by shape {shapes}")
+    f32, f64, per_pt = sparse_f64_gap(gp)
+    mean, var = np.asarray(r["pred"].μ, dtype=np.float64), np.asarray(r["pred"].σ2, dtype=np.float64)
+    rmse = float(np.sqrt(np.mean((mean - np.sin(1.3 * np.asarray(g, dtype=np.float64))) ** 2)))
+    dv = r["draws"]["y"].values()
+    log(f"[gp_sparse] neg_logp at fit: f32 {f32:.4f} (fit {gp._neg_logp:.4f}) | f64 {f64:.4f} | |diff| {per_pt:.2e} "
+        f"nats/pt (tol {BASIN_TOL}; GP carries the port's whitened FITC evidence, the named divergence from "
+        f"the reference's NaN f32 value) | MAP ls (z) {gp.MAP['ls_total'].tolist()} | line RMSE vs truth {rmse:.4f} | mean "
+        f"[{mean.min():.3f}, {mean.max():.3f}] var [{var.min():.2e}, {var.max():.2e}] | draws {dv.shape}, finite "
+        f"{bool(np.isfinite(dv).all())} | phase 18 took {seconds:.1f} s")
+    assert gp.sparse and gp._cache is None and gp._xu_c.shape == (FITC_NU, 2), "gp_sparse: not a sparse model"
+    assert sum(shapes.values()) == launches > 0, f"gp_sparse: rbf_gram launches {launches}, {shapes}"
+    assert r["launches"]["predict"]["rbf_gram"] > 0, "gp_sparse: the line's predict never launched rbf_gram"
+    assert mean.shape == (FITC_LINE,) and np.isfinite(mean).all() and np.isfinite(var).all() and (var >= 0).all()
+    assert dv.shape == (GP_SPARSE_DRAWS, FITC_LINE) and np.isfinite(dv).all(), "gp_sparse: draws"
+    assert per_pt <= BASIN_TOL, f"gp_sparse: f32 and f64 objectives differ by {per_pt} nats/pt"
+    del gp, r
+    return launches, seconds
+
+
 def _rbf_bound(n, m, d):
     bytes_s = 4.0 * (n * d + m * d + n * m) / HBM_BYTES_PER_S
     ops_s = n * m * (3.0 * d + 2.0) / FP32_PEAK
@@ -2825,7 +3126,9 @@ def main():
     kron_launches = phase3_slice()
     fused_errs, fused_times, sym_times = phase4_fused_vs_plain()
     phase5_anchor()
-    iter_launches, _, _ = phase6_iterative()
+    iter_launches, _, iter_r = phase6_iterative()
+    ops_map_ls = constrain(iter_r["u_best"])["ls_total"].tolist()
+    del iter_r
     chol_max_abs, chol_times = phase7_chol_vs_plain()
     dense_launches, _, _ = phase8_dense(breakdown="--dense-breakdown" in sys.argv[1:])
     phase8b_blocked_backward()
@@ -2840,6 +3143,8 @@ def main():
     gp_launches, _, gp_a = phase15_model_layer()
     surface_launches, _ = phase16_model_surface(gp_a, chees_ls)
     del gp_a
+    gp_iter_launches, _ = phase17_gp_iterative(ops_map_ls)
+    gp_sparse_launches, _ = phase18_gp_sparse()
     sms, mhz, peak = _fp32_peak_of_card()
     log(f"[card] {sms} SMs at max {mhz:.0f} MHz: FP32 FMA peak {peak / 1e12:.1f} TFLOP/s "
         f"(bounds use the data sheet's {FP32_PEAK / 1e12:.0f})")
@@ -2855,13 +3160,15 @@ def main():
          "replaces": "gumbi_tpu/ops/pallas_kernels.py:111",
          "launches": kron_launches["total"] + iter_launches["rbf_gram"] + dense_launches["rbf_gram"]
          + fitc_launches + fitc_laplace_launches + laplace_launches + sum(r["launches"] for r in bo_runs)
-         + sampler_runs["chees"][0] + sampler_runs["hmc"][0] + ess_launches + gp_launches + surface_launches,
+         + sampler_runs["chees"][0] + sampler_runs["hmc"][0] + ess_launches + gp_launches + surface_launches
+         + gp_iter_launches["rbf_gram"] + gp_sparse_launches,
          "launches_by_path": {"kronecker": kron_launches["total"], "iterative": iter_launches["rbf_gram"],
                               "dense": dense_launches["rbf_gram"], "fitc": fitc_launches,
                               "fitc_laplace": fitc_laplace_launches, "laplace": laplace_launches,
                               "bo": sum(r["launches"] for r in bo_runs), "chees": sampler_runs["chees"][0],
                               "hmc": sampler_runs["hmc"][0], "ess": ess_launches, "gp_model": gp_launches,
-                              "gp_surface": surface_launches},
+                              "gp_surface": surface_launches, "gp_iterative": gp_iter_launches["rbf_gram"],
+                              "gp_sparse": gp_sparse_launches},
          "launches_by_path_and_shape": {path: dict(c) for path, c in RBF_SHAPES.items()},
          "max_abs_err": rbf_max_abs, "ms": k_ms, "plain_ms": p_ms, "bound_ms": rb, "bound_fp32_ms": rb,
          "bound_by": rby,
@@ -2872,7 +3179,10 @@ def main():
          "bound_ms_by_shape": {_shape_key(n, m): _rbf_bound(n, m, 2)[0] for (n, m) in rbf_times}},
         {"name": "fused_stationary_matvec", "route": "cuda", "source": "gumbi_tpu_torch/csrc/fused_matvec.cu",
          "replaces": "gumbi_tpu/ops/pallas_kernels.py:309",
-         "launches": iter_launches["fused_stationary_matvec"], "max_abs_err": fused_errs["general"],
+         "launches": iter_launches["fused_stationary_matvec"] + gp_iter_launches["fused_stationary_matvec"],
+         "launches_by_path": {"iterative": iter_launches["fused_stationary_matvec"],
+                              "gp_iterative": gp_iter_launches["fused_stationary_matvec"]},
+         "max_abs_err": fused_errs["general"],
          "ms": gk, "plain_ms": gp, "bound_ms": gb, "bound_fp32_ms": gb32, "bound_by": gby, "library_ms": None,
          "shape": "10000x50000 d=2 r=513", "ms_r65": fused_times[("general", 50_000, 50_000, 65)][0],
          "ms_r1": fused_times[("general", 10_000, 50_000, 1)][0],
@@ -2881,7 +3191,10 @@ def main():
          "ms_50000x50000_r1": fused_times[("general", 50_000, 50_000, 1)][0]},
         {"name": "fused_stationary_matvec_sym", "route": "cuda", "source": "gumbi_tpu_torch/csrc/fused_matvec.cu",
          "replaces": "gumbi_tpu/ops/pallas_kernels.py:471",
-         "launches": iter_launches["fused_stationary_matvec_sym"], "max_abs_err": fused_errs["sym"],
+         "launches": iter_launches["fused_stationary_matvec_sym"] + gp_iter_launches["fused_stationary_matvec_sym"],
+         "launches_by_path": {"iterative": iter_launches["fused_stationary_matvec_sym"],
+                              "gp_iterative": gp_iter_launches["fused_stationary_matvec_sym"]},
+         "max_abs_err": fused_errs["sym"],
          "ms": sk, "plain_ms": sp, "bound_ms": sb, "bound_fp32_ms": sb32, "bound_by": sby, "library_ms": None,
          "shape": "50000x50000 d=2 r=65", "ms_r64": sym_times[64], "ms_r1": sym_times[1]},
         {"name": "blocked_cholesky", "route": "cuda", "source": "gumbi_tpu_torch/csrc/blocked_chol.cu",

@@ -1,10 +1,13 @@
 """GP surface learning on the port's engine — the user-facing model.
 
 Port of ``gumbi_tpu/models/gp.py``'s ``GP`` on its dense, Kronecker and
-Independent structures: :meth:`GP.fit` parses dimensions
-(:meth:`specify_model`), builds the covariance structure
-(:meth:`build_model`) and learns MAP hyperparameters (:meth:`find_MAP`) by
-multi-restart L-BFGS through the port's ``fit_gp_map`` / ``fit_kron_map``;
+Independent structures and its two large-N regressors: :meth:`GP.fit`
+parses dimensions (:meth:`specify_model`), builds the covariance structure
+(:meth:`build_model`, with k-means inducing points when ``sparse=True``) and
+learns MAP hyperparameters (:meth:`find_MAP`) by multi-restart L-BFGS
+through the port's ``fit_gp_map`` / ``fit_kron_map``, on the FITC evidence
+for a sparse model, or through the iterative (mBCG + SLQ) engine with
+``engine='iterative'``, staged coarse-to-fine past 16,384 rows;
 ``prepare_grid``/``predict_grid`` then answer from the posterior caches,
 :meth:`draw_point_samples`/:meth:`draw_grid_samples` draw jointly from
 them, the ``predict_grad`` family differentiates the posterior mean by
@@ -24,16 +27,18 @@ seeded as the reference seeds its JAX keys: the same distributions, not the
 same numbers (``stream=`` replays any other stream).
 
 Paths of later steps raise ``NotImplementedError`` naming the step of the
-roadmap's first queue that ports them: ``sparse=True`` (12),
-``heteroskedastic_inputs=True`` (15), ``engine='iterative'`` (16),
-``mesh=``/``shard_data=`` (19).
+roadmap's first queue that ports them: loading a classifier's save (13,
+with ``GPC``), ``heteroskedastic_inputs=True`` (15), ``mesh=``/
+``shard_data=`` (19).
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 import json
+import warnings
 from dataclasses import asdict
 
 import numpy as np
@@ -44,18 +49,30 @@ from ..ops import (
     CoregTerm,
     GPSpec,
     GPTerm,
+    IterConfig,
     chees_sample,
+    coarse_restart_map,
     constrain,
+    draw_probes,
     draw_samples,
     fit_gp_map,
+    fit_iter_map,
     fit_kron_map,
+    fitc_draw_samples,
+    fitc_neg_logp,
+    fitc_predict,
     gram,
     hmc_sample,
     initial_params,
+    iter_map_neg_logp,
+    iter_posterior_cache,
+    iter_predict_diag,
     kron_cache,
     kron_predict_diag,
+    lbfgs_backtracking_minimize,
     ls_prior_params,
     map_neg_logp_chains,
+    multi_restart_minimize,
     optimize_acqf,
     optimize_qlog_nei,
     output_correlation,
@@ -66,6 +83,7 @@ from ..ops import (
     qlog_nehvi_2d,
     qlog_nehvi_mc,
     qlog_nei,
+    select_inducing,
     sobol_normal,
     sobol_uniform,
     unconstrain,
@@ -73,10 +91,17 @@ from ..ops import (
 from ..ops.acquisition import make_indep_sample_fn, make_kron_sample_fn
 from ..ops.kernels import CONTINUOUS_KERNELS
 from ..utils import assert_in
+from ..utils.profiling import phase
 from ..utils.torch_utils import TorchStream, default_model_dtype, resolve_device
 from .base import Regressor
 
 __all__ = ["GP"]
+
+# The staged iterative fit's polish escalates an unconverged CG cap ×4 up to
+# this many iterations, the reference's default rungs. One 4,096-iteration
+# CG value+grad at N = 50,000 would spend ~33 s in the symmetric matvec
+# alone on an H100 (PERF.md §6), so the ceiling stays, as a constant.
+POLISH_CG_CAP = 2048
 
 
 def _later(what, step):
@@ -145,6 +170,9 @@ class GP(Regressor):
         self._cat_maps = {}
         self._structure = "Hadamard"
         self._mask = None
+        # Iterative-engine state; populated by _find_MAP_iterative
+        self._iter_cache = None
+        self._iter_state = None
         self._dtype = default_model_dtype(self._device) if dtype is None else _torch_dtype(dtype)
 
         self.model_specs = {
@@ -201,8 +229,6 @@ class GP(Regressor):
         See :meth:`build_model` for the model-structure arguments and
         :meth:`find_MAP` for optimizer controls (pass via ``MAP_kwargs``).
         """
-        from ..utils.profiling import phase
-
         with phase("specify_model"):
             self.specify_model(
                 outputs=outputs,
@@ -353,9 +379,10 @@ class GP(Regressor):
         cheaper (batched (D, N, N) Cholesky instead of one (ND, ND)); auto
         selects it whenever the structure allows. 'Hadamard' forces the
         tall path.
+
+        ``sparse``: the FITC model on ``n_u`` inducing points, placed by
+        k-means (host numpy, the reference's draws) over the real rows.
         """
-        if sparse:
-            raise _later("sparse=True (the FITC model)", 12)
         if heteroskedastic_inputs:
             raise _later("heteroskedastic_inputs=True", 15)
         assert_in("Continuous kernel", continuous_kernel, CONTINUOUS_KERNELS)
@@ -433,6 +460,12 @@ class GP(Regressor):
         if heteroskedastic_outputs and self.out_col in self.categorical_dims:
             out_j = self.categorical_dims.index(self.out_col)
             noise_coreg = CoregTerm(name="Output_noise", col=out_j, d_out=len(self.outputs))
+            if sparse:
+                warnings.warn(
+                    "Heteroskedasticity over outputs is not yet implemented for sparse GP. "
+                    "Reverting to scalar-valued noise."
+                )
+                noise_coreg = None
 
         self._spec = GPSpec(terms=terms, d_cont=d_cont, ard=ARD, noise_coreg=noise_coreg, period=period_z)
         self.model = self._spec
@@ -452,6 +485,12 @@ class GP(Regressor):
             # Per-output single-task GPs: separate kernels, no learned
             # cross-output correlation. Each sub-model keeps every coregion
             # factor except the output column and the full additive terms.
+            if sparse:
+                raise NotImplementedError(
+                    "Independent structure does not compose with sparse FITC "
+                    "(the reference's ModelListGP is exact-only); fit per-output "
+                    "sparse GPs directly or use the Hadamard structure."
+                )
             if bucket:
                 raise NotImplementedError(
                     "Bucket padding is not implemented for the Independent "
@@ -495,6 +534,7 @@ class GP(Regressor):
             return self
         kron_structure_ok = (
             not self.additive
+            and not sparse
             and bucket is None
             and d_out > 1
             and self.categorical_dims == [self.out_col]
@@ -541,6 +581,14 @@ class GP(Regressor):
         X_s = np.asarray(X[:, :d_cont], dtype=float)
         lowers, uppers = self._prepare_ls_bounds(X_s, ARD, ls_bounds)
         self._ls_alpha, self._ls_beta = ls_prior_params(lowers, uppers, mass=mass)
+
+        if sparse:
+            # k-means over the stacked (continuous z, categorical index)
+            # matrix of the real rows, categorical columns snapped back to
+            # valid level indices.
+            self._xu_c, self._xu_k = select_inducing(
+                self._xc, self._xk, n_u, d_cont, seed, self._dtype, mask=self._mask, device=self._device
+            )
         return self
 
     @property
@@ -597,17 +645,37 @@ class GP(Regressor):
         the rest jitter in unconstrained space. The best finite optimum wins.
         Dense Hadamard and Independent fits go through ``fit_gp_map`` and
         keep a Cholesky posterior cache; Kronecker fits go through
-        ``fit_kron_map`` and keep a ``kron_cache``.
+        ``fit_kron_map`` and keep a ``kron_cache``; a sparse model's restarts
+        minimize ``fitc_neg_logp`` and keep no cache (its predictions
+        factor the M×M system each call).
+
+        ``engine='iterative'`` (dense Hadamard) swaps the Cholesky marginal
+        likelihood for the matrix-free mBCG + stochastic Lanczos engine
+        (:mod:`gumbi_tpu_torch.ops.iterative`): O(N·block) memory, the
+        fused Gram-matvec kernels on the card. ``iter_config`` takes an
+        :class:`~gumbi_tpu_torch.ops.IterConfig`; the default picks a block
+        size for large N. ``coarse_n`` and ``polish_maxiter`` (keywords)
+        steer the staged fit of :meth:`_find_MAP_iterative`.
         """
         assert self._spec is not None, "Call build_model first"
         seed = self.seed if seed is None else seed
+        self._iter_cache = None
+        self._iter_state = None
 
         if engine not in ("cholesky", "iterative"):
             raise ValueError("engine must be 'cholesky' or 'iterative'")
-        if engine == "iterative":
-            raise _later("engine='iterative'", 16)
         if mesh is not None or shard_data:
             raise _later("mesh= and shard_data=", 19)
+        if engine == "iterative":
+            if self.sparse or self._structure in ("Kronecker", "Independent") or self.heteroskedastic_inputs:
+                raise NotImplementedError(
+                    "engine='iterative' supports the dense Hadamard "
+                    "structure (the tall multi-output layout included)."
+                )
+            return self._find_MAP_iterative(
+                iter_config, n_restarts=n_restarts, maxiter=maxiter, tol=tol, seed=seed,
+                coarse_n=kwargs.pop("coarse_n", None), polish_maxiter=kwargs.pop("polish_maxiter", None),
+            )
 
         u0s = initial_params(
             self._spec, self._ls_alpha, self._ls_beta, n_restarts=n_restarts, seed=seed,
@@ -616,7 +684,17 @@ class GP(Regressor):
         ls_alpha = self._tensor(self._ls_alpha)
         ls_beta = self._tensor(self._ls_beta)
 
-        if self._structure == "Independent":
+        if self.sparse:
+            def objective(uparams):
+                return fitc_neg_logp(
+                    self._spec, uparams, self._xc, self._xk, self._xu_c, self._xu_k, self._yz,
+                    ls_alpha, ls_beta, mask=self._mask,
+                )
+
+            u_best, neg_logp, aux = multi_restart_minimize(objective, u0s, maxiter=maxiter, tol=tol)
+            params = constrain(u_best)
+            self._cache = None
+        elif self._structure == "Independent":
             # One single-task fit per output, each from its own seeded starts.
             self._ind_params = []
             self._ind_caches = []
@@ -658,16 +736,198 @@ class GP(Regressor):
         self._neg_logp = float(neg_logp)
         self._fit_aux = _numpy(aux)
         self.MAP = _numpy(params)
-        if self._structure != "Kronecker":
+        if not self.sparse and self._structure != "Kronecker":
             with torch.no_grad():
                 self._cache = posterior_cache(
                     self._spec, self._params, self._xc, self._xk, self._yz, mask=self._mask
                 )
         return self.MAP
 
+    def _find_MAP_iterative(self, iter_config, *, n_restarts, maxiter, tol, seed, coarse_n=None,
+                            polish_maxiter=None):
+        """Dense-Hadamard MAP fit through the mBCG/SLQ engine.
+
+        Data is bucket-padded (the engine's exact identity-row masking) to a
+        multiple of the matvec block, probes are drawn once per fit
+        (deterministic objective), and the posterior state is one PCG solve
+        plus the rank-k pivoted-Cholesky and LOVE factors: never an (N, N)
+        array.
+
+        Large-N fits stage coarse-to-fine: the restart sweep triages
+        hyperparameters on a ``coarse_n``-row subsample (default 4,096)
+        through the exact Cholesky objective, and only the winner polishes
+        at full N through the iterative objective. Staging activates for
+        N > 16,384 or whenever ``coarse_n`` is given; ``polish_maxiter``
+        bounds the full-N polish (default 100).
+
+        The polish climbs a recovery ladder while its start evaluates
+        non-finite (the engine returns +inf when CG exits at its cap above
+        tolerance): the coarse winner at the configured CG cap, up to two
+        runner-up coarse candidates at that cap, then the winner at caps
+        ×4 up to :data:`POLISH_CG_CAP`; each rung's first evaluation is its
+        probe. If no rung starts finite, the fit keeps the subsample MAP and
+        flags it (``_fit_aux['polish_fallback']``). ``_fit_aux`` also holds
+        the rung taken (``polish_rung``) and, per polish evaluation of that
+        rung, its regime (``polish_exhausted``), CG iterations
+        (``polish_cg_iters``) and Woodbury residual (``polish_woodbury_rel``,
+        NaN where the factorization was not exhausted); and, for every
+        iterative fit, the posterior solve's regime, CG iterations, residual
+        and Woodbury residual (``cache_exhausted``, ``cache_cg_iters``,
+        ``cache_rel_res``, ``cache_woodbury_rel``).
+        """
+        n = int(self._xc.shape[0])
+        if iter_config is None:
+            # The dense matvec while the (N, N) Gram fits comfortably; blocked
+            # streaming beyond that. LOVE rank scales to the data.
+            iter_config = IterConfig(block=0 if n <= 16384 else 2048, love_rank=min(512, n))
+        cfg = iter_config
+
+        xc, xk, yz, mask = self._xc, self._xk, self._yz, self._mask
+        if cfg.block > 0 and n % cfg.block:
+            pad = (-n) % cfg.block
+            xc = torch.cat([xc, xc.new_zeros((pad, xc.shape[1]))])
+            xk = torch.cat([xk, xk.new_zeros((pad, xk.shape[1]))])
+            yz = torch.cat([yz, yz.new_zeros(pad)])
+            base = self._mask if self._mask is not None else yz.new_ones(n)
+            mask = torch.cat([base, yz.new_zeros(pad)])
+
+        spec = self._spec
+        u0s = initial_params(
+            spec, self._ls_alpha, self._ls_beta, n_restarts=n_restarts, seed=seed,
+            dtype=self._dtype, device=self._device,
+        )
+        ls_alpha = self._tensor(self._ls_alpha)
+        ls_beta = self._tensor(self._ls_beta)
+        pn, pk = draw_probes(seed, int(xc.shape[0]), cfg, dtype=self._dtype, device=self._device)
+
+        if coarse_n is not None or n > 16384:
+            cn = min(int(coarse_n) if coarse_n else 4096, n)
+            rng = np.random.default_rng(seed)
+            real = np.flatnonzero(_numpy(self._mask) > 0) if self._mask is not None else np.arange(n)
+            idx = self._index(rng.choice(real, size=min(cn, real.size), replace=False))
+            xc_c, xk_c, y_c = self._xc[idx], self._xk[idx], self._yz[idx]
+
+            def coarse_runner(u0):
+                return coarse_restart_map(spec, xc_c, xk_c, y_c, ls_alpha, ls_beta, u0, maxiter=maxiter, tol=tol)
+
+            with phase("iter_coarse"):
+                _, _, aux_c = multi_restart_minimize(None, u0s, runner=coarse_runner)
+            pm_iter = int(polish_maxiter) if polish_maxiter else 100
+            with phase("iter_polish"):
+                u_best, neg_logp, polish_iters, cfg, rung, start_restart, evals = self._polish_ladder(
+                    cfg, aux_c, pm_iter, tol, xc, xk, yz, mask, ls_alpha, ls_beta, pn, pk
+                )
+                u_start = {k: v[start_restart] for k, v in aux_c["all_xs"].items()}
+                if not np.isfinite(float(neg_logp)) or int(polish_iters) == 0:
+                    warnings.warn(
+                        "Full-N polish could not improve on the coarse-stage "
+                        "optimum (objective "
+                        + ("never evaluated finite" if not np.isfinite(float(neg_logp))
+                           else "converged immediately")
+                        + "); the fit keeps the "
+                        f"subsample ({int(idx.shape[0])}-point) MAP."
+                    )
+                polish_fallback = not np.isfinite(float(neg_logp))
+                if polish_fallback:
+                    # The stored value is the coarse-subsample Cholesky
+                    # objective, not the full-N iterative one: flagged in
+                    # _fit_aux so it is never mistaken for a full-N number.
+                    u_best, neg_logp = u_start, aux_c["all_values"].min()
+            aux = {
+                "all_values": aux_c["all_values"],
+                "iters": aux_c["iters"],
+                "best_restart": aux_c["best_restart"],
+                "polish_iters": polish_iters,
+                "polish_fallback": np.asarray(polish_fallback),
+                "polish_start_restart": np.asarray(start_restart),
+                "polish_rung": np.asarray(rung),
+                "polish_exhausted": np.asarray([e for e, _, _ in evals], dtype=bool),
+                "polish_cg_iters": np.asarray([it for _, it, _ in evals], dtype=np.int64),
+                "polish_woodbury_rel": np.asarray([w for _, _, w in evals], dtype=np.float64),
+            }
+        else:
+            u_best, neg_logp, aux = fit_iter_map(
+                spec, cfg, xc, xk, yz, ls_alpha, ls_beta, pn, pk, u0s, mask=mask, maxiter=maxiter, tol=tol,
+            )
+        params = constrain(u_best)
+        self._params = params
+        self._neg_logp = float(neg_logp)
+        self._fit_aux = _numpy(aux)
+        self.MAP = _numpy(params)
+        self._cache = None  # never build the (N, N) Cholesky state
+        self._iter_state = {"cfg": cfg, "xc": xc, "xk": xk, "yz": yz, "mask": mask}
+        info = {}
+        with phase("iter_cache"):
+            self._iter_cache = iter_posterior_cache(spec, cfg, params, xc, xk, yz, mask=mask, info=info)
+            if self._device.type == "cuda":
+                torch.cuda.synchronize(self._device)
+        self._fit_aux.update(cache_exhausted=np.asarray(info["exhausted"]), cache_cg_iters=np.asarray(info["iters"]),
+                             cache_rel_res=np.asarray(float(info["rel_res"])),
+                             cache_woodbury_rel=np.asarray(info["woodbury_rel"]))
+        return self.MAP
+
+    def _polish_ladder(self, cfg, aux_c, pm_iter, tol, xc, xk, yz, mask, ls_alpha, ls_beta, pn, pk):
+        """The staged fit's full-N polish and its recovery ladder (see
+        :meth:`_find_MAP_iterative`). Returns ``(u, f, iterations, cfg,
+        rung, start restart, [(exhausted, CG iterations, Woodbury residual)]
+        of the rung's evaluations)``; ``f`` is +inf and ``rung`` −1 when no
+        rung started finite."""
+        fs_c = np.asarray(aux_c["all_values"], dtype=np.float64)
+        order = np.argsort(np.where(np.isfinite(fs_c), fs_c, np.inf))
+        ladder = [(int(order[k]), cfg) for k in range(min(3, order.size))]
+        c = cfg
+        while c.maxiter < POLISH_CG_CAP:
+            # max(·, 1): maxiter ≤ 0 would pin min(0·4, cap) at 0 and loop forever
+            nxt = min(max(c.maxiter, 1) * 4, POLISH_CG_CAP)
+            if nxt <= c.maxiter:
+                break
+            c = dataclasses.replace(c, maxiter=nxt)
+            ladder.append((int(order[0]), c))
+        cfg_p, start_restart, rung_taken = cfg, int(order[0]), -1
+
+        for rung, (ridx, cfg_try) in enumerate(ladder):
+            evals = []
+
+            def objective(u, cfg_try=cfg_try, evals=evals):
+                info = {}
+                f = iter_map_neg_logp(
+                    self._spec, u, xc, xk, yz, ls_alpha, ls_beta, pn, pk, cfg_try, mask=mask, info=info
+                )
+                evals.append((bool(info["exhausted"]), int(info["iters"]), info["woodbury_rel"]))
+                return f
+
+            u_try = {k: v[ridx] for k, v in aux_c["all_xs"].items()}
+            u_best, neg_logp, polish_iters = lbfgs_backtracking_minimize(objective, u_try, maxiter=pm_iter, ftol=tol)
+            if np.isfinite(float(neg_logp)):
+                cfg_p, start_restart, rung_taken = cfg_try, ridx, rung
+                break
+            nxt = ladder[rung + 1] if rung + 1 < len(ladder) else None
+            which = "the coarse-stage optimum" if ridx == int(order[0]) else f"coarse candidate {ridx}"
+            if nxt is None:
+                pass
+            elif nxt[1].maxiter != cfg_try.maxiter:
+                warnings.warn(
+                    f"Iterative MLL did not converge at {which} "
+                    f"within maxiter={cfg_try.maxiter} CG "
+                    f"iterations; escalating the cap to "
+                    f"{nxt[1].maxiter} for the full-N polish."
+                )
+            else:
+                warnings.warn(
+                    f"Iterative MLL did not converge at {which} "
+                    f"within maxiter={cfg_try.maxiter} CG "
+                    "iterations; trying the next coarse candidate."
+                )
+        return u_best, neg_logp, polish_iters, cfg_p, rung_taken, start_restart, evals
+
     def _ensure_dense_cache(self):
         """Dense tall-basis factorization, built lazily when a path needs
         full covariances the Kronecker cache lacks.
+
+        As in the reference, a sparse or iterative model builds it too, from
+        the unpadded rows, on the first call that needs it (``predict_grad``,
+        ``propose(q=)``, the dense draws): the (N, N) factor the fit avoided
+        (ROADMAP.md queue 3 records this as a matched fault).
 
         For a Kronecker model its α is the Kronecker solve's, laid out on the
         tall rows; L is the dense factor. A named divergence: the reference
@@ -726,10 +986,24 @@ class GP(Regressor):
                 return _numpy(mean), _numpy(var)
 
             xc, xk = self._split_X(np.asarray(points_array))
-            if self._structure == "Kronecker":
+            if self.sparse:
+                mean, var = fitc_predict(
+                    self._spec, self._params, self._xc, self._xk, self._xu_c, self._xu_k, self._yz, xc, xk,
+                    with_noise=with_noise, mask=self._mask,
+                )
+            elif self._structure == "Kronecker":
                 mean, var = self._kron_predict_tall(xc, xk, with_noise)
             elif self._structure == "Independent":
                 mean, var = self._independent_predict_tall(xc, xk, with_noise)
+            elif self._iter_cache is not None:
+                # The fit ran through the iterative engine: no (N, N) array
+                # (mean from the cached PCG solve, variance from the LOVE
+                # factor, conservative).
+                st = self._iter_state
+                mean, var = iter_predict_diag(
+                    self._spec, st["cfg"], self._params, self._iter_cache, st["xc"], st["xk"], xc, xk,
+                    with_noise=with_noise, mask=st["mask"],
+                )
             else:
                 mean, var = predict_diag_chunked(
                     self._spec, self._params, self._ensure_dense_cache(), xc, xk,
@@ -972,10 +1246,10 @@ class GP(Regressor):
         ``stream=`` takes any object with ``TorchStream``'s interface
         instead. The trace is subsampled by ``np.random.default_rng(seed)``,
         as in the reference.
+        A sparse model draws jointly from its FITC posterior
+        (``fitc_draw_samples``), at the MAP or per trace draw alike.
         Returns a parray with one layer per output, shape (n_samples, n_points).
         """
-        if self.sparse:
-            raise _later("draws from a sparse (FITC) model", 12)
         level = self._parse_additive_level(additive_level)
         output = self._parse_prediction_output(output)
         points_array, _, _ = self._prepare_points_for_prediction(points, output=output)
@@ -989,9 +1263,17 @@ class GP(Regressor):
         def eps(s, n_rows, n_s=n_samples):
             return s.normal((n_s, n_rows)).to(dtype=self._dtype, device=self._device)
 
+        def fitc_draws(p, s, n_s):
+            return fitc_draw_samples(
+                self._spec, p, self._xc, self._xk, self._xu_c, self._xu_k, self._yz, xc, xk,
+                n_samples=n_s, with_noise=with_noise, mask=self._mask, eps=eps(s, xc.shape[0], n_s),
+            )
+
         with torch.no_grad():
             if source is None or source is self.MAP:
-                if self._structure == "Independent":
+                if self.sparse:
+                    out = _numpy(fitc_draws(self._params, stream, n_samples)).reshape(n_samples, d_out, n_pts)
+                elif self._structure == "Independent":
                     xk_np = _numpy(xk)
                     blocks = []
                     for i, name in enumerate(output):
@@ -1020,6 +1302,9 @@ class GP(Regressor):
                 rows = []
                 for i, idx in enumerate(idxs):
                     p = {k: self._tensor(np.array(v[idx])) for k, v in flat.items()}
+                    if self.sparse:
+                        rows.append(_numpy(fitc_draws(p, stream.fold_in(i), 1))[0])
+                        continue
                     cache_i = posterior_cache(self._spec, p, self._xc, self._xk, self._yz, mask=self._mask)
                     s = draw_samples(
                         self._spec, p, cache_i, xc, xk, n_samples=1, with_noise=with_noise, level=level,
@@ -1419,6 +1704,9 @@ class GP(Regressor):
         }
         if self._params is not None:
             arrays.update({f"param::{k}": _numpy(v) for k, v in self._params.items()})
+        if self.sparse:
+            arrays["xu_c"] = _numpy(self._xu_c)
+            arrays["xu_k"] = _numpy(self._xu_k).astype(np.int32)
         if self._structure == "Kronecker":
             arrays["xc_locs"] = _numpy(self._xc_locs)
             arrays["Y"] = _numpy(self._Y)
@@ -1438,8 +1726,6 @@ class GP(Regressor):
         with np.load(path, allow_pickle=False) as z:
             meta = json.loads(str(z["__meta__"]))
             arrays = {k: z[k] for k in z.files if k != "__meta__"}
-        if meta.get("sparse") or "xu_c" in arrays or "xu_k" in arrays:
-            raise _later("loading a sparse (FITC) model", 12)
         if any(k.startswith("noise") for k in arrays):
             raise _later("loading a heteroskedastic-input model", 15)
         spec = spec_from_reference(meta["spec"])
@@ -1471,6 +1757,9 @@ class GP(Regressor):
         gp._ls_alpha = arrays["ls_alpha"]
         gp._ls_beta = arrays["ls_beta"]
         gp._build_cat_maps()
+        if gp.sparse:
+            gp._xu_c = gp._tensor(arrays["xu_c"])
+            gp._xu_k = gp._index(arrays["xu_k"])
 
         def params_with(prefix):
             return {
@@ -1509,7 +1798,10 @@ class GP(Regressor):
             with torch.no_grad():
                 if gp._structure == "Kronecker":
                     gp._kron_cache = kron_cache(gp._spec, gp._params, gp._xc_locs, gp._Y)
-                else:
+                elif not gp.sparse:
+                    # an iterative fit's save loads without its iterative
+                    # state and predicts through the dense cache, as the
+                    # reference's does
                     gp._cache = posterior_cache(
                         gp._spec, gp._params, gp._xc, gp._xk, gp._yz, mask=gp._mask
                     )

@@ -212,9 +212,7 @@ def _fitted_port(n=40):
 
 
 LATER = {
-    "sparse": lambda gp: gp.build_model(sparse=True),
     "heteroskedastic_inputs": lambda gp: gp.build_model(heteroskedastic_inputs=True),
-    "engine_iterative": lambda gp: gp.find_MAP(engine="iterative"),
     "mesh": lambda gp: gp.find_MAP(mesh=object()),
     "shard_data": lambda gp: gp.find_MAP(shard_data=True),
     "predict_mesh": lambda gp: gp.predict(np.zeros((1, 1)), mesh=object()),
@@ -229,7 +227,7 @@ def test_later_steps_raise_not_implemented(name):
         LATER[name](gp)
 
 
-@pytest.mark.parametrize("extra", ["xu_c", "noise_zt"])
+@pytest.mark.parametrize("extra", ["noise_zt"])
 def test_load_of_a_later_steps_save_raises(extra, tmp_path):
     gp = _fitted_port()
     path = tmp_path / "m.npz"

@@ -7,9 +7,11 @@ cache) and ``iter_predict_diag`` on a grid. Here it runs on the CPU at f64
 through ``chip_smoke.run_iter_campaign`` itself, cut to N = 512, block 128,
 a 128-row coarse subsample, 4 restarts, rank 32, 8 probes and LOVE rank
 256 (so the block-LOVE path runs), and is held against the same chain
-built from the reference's ops, with the reference's LOVE start block Ω.
+built from the reference's ops, with the reference's LOVE start block Ω
+and its posterior cache solved to the port's target (``POSTERIOR_TOL``).
 """
 
+import dataclasses
 import os
 import sys
 
@@ -26,6 +28,7 @@ import gumbi_tpu.ops.optimize as jo
 import gumbi_tpu.ops.priors as jp
 from gumbi_tpu_torch.convert import iter_cache_to_numpy, params_to_numpy
 from gumbi_tpu_torch.ops import constrain
+from gumbi_tpu_torch.ops.iterative import POSTERIOR_TOL
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -76,7 +79,10 @@ def ref_run(port_run):
     u_best, f_best, _ = jo.lbfgs_host_minimize(objective, u_start, maxiter=chip_smoke.ITER_POLISH_ITERS,
                                                ftol=chip_smoke.FIT_TOL)
     params = jp.constrain(u_best)
-    cache = ji.iter_posterior_cache(jspec, jcfg, params, xc, xk, y)
+    # the port solves the posterior's α to min(tol, POSTERIOR_TOL) (a named
+    # divergence of ops/iterative.py); the reference's cache at that target
+    cache_cfg = dataclasses.replace(jcfg, tol=min(jcfg.tol, POSTERIOR_TOL))
+    cache = ji.iter_posterior_cache(jspec, cache_cfg, params, xc, xk, y)
     xg = jnp.asarray(r["xg"].numpy())
     mean, var = ji.iter_predict_diag(jspec, jcfg, params, cache, xc, xk, xg, jnp.zeros((GRID * GRID, 0), jnp.int32),
                                      with_noise=False)
