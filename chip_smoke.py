@@ -28,7 +28,8 @@ Phases (any failure raises and ends the run with a nonzero exit code):
    Grams (512², 2,048²) with x2 the same tensor as x1, at phase 15's grid
    shapes and at phase 16's (10,240² and 20,000² with x2 the same tensor
    as x1, 20,000×10,240, 5,120×132 and 5,120×2,112 with the x1/x2
-   cotangents, 10,000×512, 10,000²). Count with torch.profiler that each call runs exactly
+   cotangents, 10,000×512, 10,000²) and at phase 19's (10,000×2,048 with the x1/x2
+   cotangents, 10,000×512, 2,048×128, 128²). Count with torch.profiler that each call runs exactly
    one CUDA kernel. Time kernel and plain in turns at (1, 50,000),
    (2,500, 50,000), 1,024², 5,120², 5,120×10,000 and 16,384²: CUDA events
    over 100 launches, the median of 5 such runs, beside the profiler's
@@ -150,8 +151,9 @@ Phases (any failure raises and ends the run with a nonzero exit code):
    log units) of the f64 plain path's, the kernel launched on each run.
 13. ``GP.sample``'s ops path on 12(a)'s problem from its MAP fit:
    ``chees_sample`` (16 chains, target 0.75, at most 256 leapfrog steps)
-   and ``hmc_sample`` (2 chains, 32 steps, target 0.8), each at tune/draws
-   100/100 (phase 16 runs ChEES at its defaults through ``GP.sample``),
+   and ``hmc_sample`` (2 chains, 32 steps, target 0.8), ChEES at tune/draws
+   100/100 and HMC at 50/50 (phase 16 runs ChEES at 250 + 250 through
+   ``GP.sample``),
    both on the chain-batched objective
    ``map_neg_logp_chains``: one objective call for all chains a leapfrog
    step (counted). Prints seconds per iteration, the adapted step size and
@@ -162,8 +164,8 @@ Phases (any failure raises and ends the run with a nonzero exit code):
    posterior median from ChEES and HMC within rtol 0.35, the f32 objective
    at the ChEES median within 0.005 nats/point of f64, the kernel launched.
 14. ``GPC.sample(latent=True)``'s ops path on phase 11's problem from its
-   Laplace fit: ``ess_gpc_sample`` (2 chains, tune 500, draws 500, 4 slice
-   sweeps, target 0.3), then ``latent_conditional_proba`` over 64
+   Laplace fit: ``ess_gpc_sample`` (2 chains, tune 100, draws 100, 4 slice
+   sweeps, target 0.3; phase 19 (b) runs it at 500 + 500 through ``GPC``), then ``latent_conditional_proba`` over 64
    subsampled draws on the line. Prints seconds, trials per slice step,
    host syncs per iteration and peak memory. Checks: finite draws and
    probabilities, MH acceptance in [0.1, 0.6], no slice step at the
@@ -196,8 +198,8 @@ Phases (any failure raises and ends the run with a nonzero exit code):
    norms, ``propose(q=2)`` at its defaults (qLogNEHVI-2d). (b) On phase
    12a's N = 512 problem as a one-output table: ``GP.fit`` at
    ``find_MAP``'s defaults, ``propose(q=4)`` (qLogNEI) at its defaults,
-   ``GP.sample()`` (ChEES, 16 chains, 500 + 500), ``GP.sample(sampler=
-   'hmc')`` at phase 13's 100 + 100, and 16 ``draw_point_samples`` from
+   ``GP.sample()`` (ChEES, 16 chains, 250 + 250), ``GP.sample(sampler=
+   'hmc')`` at phase 13's 50 + 50, and 16 ``draw_point_samples`` from
    the ChEES trace on the 100×100 grid. Prints each call's seconds and
    peak GiB and ``rbf_gram`` launches by shape. Checks, against an f64
    twin of each model at the same MAP (the plain path): (a) finite draws
@@ -239,7 +241,38 @@ Phases (any failure raises and ends the run with a nonzero exit code):
    inducing points, the shape counts summing to the total, a finite line
    mean and variance (RMSE against the noise-free surface printed), finite
    draws.
-19. Print the card, the kernels' JSON line, then ``{"ok": true, ...}`` last.
+19. The classifier through the model layer, ``tools/array_table.py``'s
+   ``GPC`` at f32 (the card has no pandas), every launch count at 0 before
+   each run: (a) phase 11's generator (seed 1) at N = 2,048, labels
+   1[y > 0], ``GPC.fit`` at ``find_MAP``'s defaults (8 restarts, maxiter
+   300, tol 1e-6), ``predict_grid_proba`` on the 100×100 grid, the
+   200-point line's ``predict_proba``, ``draw_grid_samples(4)`` and save →
+   load → ``predict_grid_proba``; (b) ``sample(latent=True)`` on (a)'s
+   model at the defaults (2 chains, 500 + 500, 4 sweeps) and
+   ``predict_proba(source=trace)`` over 64 draws on the line; (c) a dense
+   classifier at N = 512 (the same generator) fit at the defaults, then
+   ``sample()`` (ChEES, 16 chains, cut to 100 + 100) on the chain-batched
+   Laplace evidence and ``sample(sampler='hmc')`` (2 chains, 32 steps, cut
+   to 10 + 10);
+   (d) phase 10's 50,000 rows and labels, ``GPC.fit(sparse=True,
+   n_u=512)`` (k-means inside ``build_model``) with ``n_restarts=8,
+   maxiter=60``, the line's ``predict_proba``, 4 ``draw_point_samples`` and
+   save → load; (e) a sparse build at 2,048 rows, n_u = 128, and ChEES
+   (16 chains, chain by chain, cut to 12 + 12). Prints each run's seconds, peak
+   GiB and ``rbf_gram`` launches by shape; (a)'s latent grid mean against
+   the f64 twin summed in f32 and with the same f32 Ks summed in f64, and
+   the draws' floor beside the latent spread; (c)'s s/iteration, leapfrog
+   steps per iteration and one 16-chain value+grad with its device-busy
+   share. Checks: (a) the f32 objective within 0.005 nats/point of f64, the
+   grid's probabilities within 1e-2 of an f64 twin at the same MAP, line
+   accuracy at most 0.05 below phase 11's, finite draws, the loaded grid
+   bit-equal; (b) phase 14's checks, accuracy against (a)'s; (c) finite
+   draws, ChEES acceptance in [0.5, 0.95], one objective call for all
+   chains a leapfrog step (counted), the f32 objective at the ChEES median
+   within 0.005 nats/point of f64; (d) as (a) against phase 10's accuracy,
+   the loaded line bit-equal; (e) finite draws, acceptance in [0.5, 0.95];
+   ``rbf_gram`` launched on every run.
+20. Print the card, the kernels' JSON line, then ``{"ok": true, ...}`` last.
    Each kernel's ``bound_ms`` is the largest of its bytes over 3.35 TB/s,
    its product flops as three TF32 passes over 495 TFLOP/s, and its other
    operations over the 67 TFLOP/s FP32 peak; ``bound_fp32_ms`` is the
@@ -332,6 +365,7 @@ from gumbi_tpu_torch.ops import (  # noqa: E402
 )
 from gumbi_tpu_torch.ops.acquisition import make_indep_sample_fn, raw_sweep  # noqa: E402
 from gumbi_tpu_torch.ops import _build, hopper_chol, hopper_kernels  # noqa: E402
+from gumbi_tpu_torch.models import gpc as gpc_module  # noqa: E402
 from gumbi_tpu_torch.ops.hopper_chol import _chol_lib  # noqa: E402
 from gumbi_tpu_torch.ops.hopper_kernels import (  # noqa: E402
     SYM_TILE,
@@ -350,10 +384,11 @@ from gumbi_tpu_torch.ops.iterative import (  # noqa: E402
     pivoted_cholesky,
 )
 from gumbi_tpu_torch.ops.kronecker import _continuous_gram, _whitened_eig, _whitened_systems, kron_parts  # noqa: E402
+from gumbi_tpu_torch.ops.laplace import _jittered_gram, laplace_mode, laplace_neg_logp_chains  # noqa: E402
 from gumbi_tpu_torch.ops.mll import DEFAULT_JITTER, _noisy_gram  # noqa: E402
 from gumbi_tpu_torch.ops.posterior import draw_floor  # noqa: E402
 from gumbi_tpu_torch.ops.tf32x3 import matmul_3xtf32_plain, tf32_round  # noqa: E402
-from gumbi_tpu_torch.tools.array_table import ArrayTable, ArrayTableGP  # noqa: E402
+from gumbi_tpu_torch.tools.array_table import ArrayTable, ArrayTableGP, ArrayTableGPC  # noqa: E402
 from gumbi_tpu_torch.tools.fitc_problem import (  # noqa: E402
     FITC_KMEANS_ITERS,
     FITC_KMEANS_ROWS,
@@ -567,6 +602,16 @@ RBF_MODEL_SHAPES = [(8192, 2048), (3616, 2048), (10_000, 1024), (1024, 10_000)]
 RBF_SURFACE_SHAPES = [((10_240, 10_240), False, True), ((20_000, 10_240), True, False),
                       ((20_000, 20_000), False, True), ((5120, 132), True, False), ((5120, 2112), True, False),
                       ((10_000, 512), False, False), ((10_000, 10_000), False, True)]
+# Shapes the classifier's model layer gives it (phase 19), d = 2: (a)'s grid
+# cross-Gram against its 2,048 training rows (held with the x1/x2 cotangents
+# too), a 10,000-point grid against 512 inducing points, and (e)'s sparse
+# sampler's Kfu and Kuu at 128 inducing points (differentiated by its
+# chains). Its training Grams (2,048², the sampler's 512², x2 the same
+# tensor as x1), the joint 10,000² of (a)'s draws and the sparse
+# (50,000, 512), (512, 512) and line shapes are held above.
+# (shape, ls/η gradients, x1/x2 cotangents)
+RBF_GPC_SHAPES = [((10_000, 2048), True, True), ((10_000, 512), False, False), ((2048, 128), True, False),
+                  ((128, 128), True, False)]
 RBF_REPS, RBF_RUNS = 100, 5  # CUDA events over 100 launches; median of 5 such runs
 RBF_SHAPES = {}  # path -> Counter of rbf_gram launches by output shape (phases 3, 6, 8)
 
@@ -703,6 +748,8 @@ def phase2_kernel_vs_plain():
         max_abs = max(max_abs, _rbf_check(n, m, 2, grad=False))
     for (n, m), xgrad, same in RBF_SURFACE_SHAPES:
         max_abs = max(max_abs, _rbf_check(n, m, 2, grad=xgrad, xgrad=xgrad, same=same))
+    for (n, m), grad, xgrad in RBF_GPC_SHAPES:
+        max_abs = max(max_abs, _rbf_check(n, m, 2, grad=grad, xgrad=xgrad))
 
     # exactly one CUDA kernel per call (torch.profiler on the card), the
     # autograd route and a shared (expanded) lengthscale included
@@ -1993,7 +2040,7 @@ def phase10_fitc_laplace(p):
         f"{per_pt:.2e} nats/pt (tol {BASIN_TOL}) | line accuracy vs the noise-free sign {r['accuracy']:.3f} | "
         f"prob [{float(r['prob'].min()):.3f}, {float(r['prob'].max()):.3f}] | draws {tuple(r['draws'].shape)}")
     _check_classifier("FITC-Laplace", r, launches, shapes, per_pt)
-    return launches
+    return launches, r["accuracy"]
 
 
 LAPLACE_FD_H = 1e-2  # central-difference step in the unconstrained parameters
@@ -2097,13 +2144,16 @@ CHEES_CHAINS, CHEES_TUNE, CHEES_DRAWS, CHEES_TARGET, CHEES_MAX_LEAP = 16, 500, 5
 # phase 13's ops-level ChEES, cut from the defaults for time: phase 16 runs
 # GP.sample() at the defaults through the model layer on the same problem
 CHEES_OPS_TUNE, CHEES_OPS_DRAWS = 100, 100
-# sampler='hmc' at its defaults but tune/draws, cut from 500/500 for time (PERF.md §4)
-HMC_CHAINS, HMC_TUNE, HMC_DRAWS, HMC_LEAP, HMC_TARGET = 2, 100, 100, 32, 0.8
+# sampler='hmc' at its defaults but tune/draws, cut from 500/500 to 50/50 for time (PERF.md §4): at 100/100
+# phases 13 and 16 took 106 s and 191 s on a slow host, most of it HMC and ChEES
+HMC_CHAINS, HMC_TUNE, HMC_DRAWS, HMC_LEAP, HMC_TARGET = 2, 50, 50, 32, 0.8
 LS_MEDIAN_RTOL = 0.35  # tests/test_extras.py's ChEES-against-HMC median rule
 CHEES_ACCEPT = (0.5, 0.95)
 HMC_MIN_ACCEPT = 0.5  # the chains move: a stalled chain's medians equal its start and would pass the median rule
 # GPC.sample(latent=True)'s defaults (gpc.py:206-275) and predict_proba's max_draws (gpc.py:398)
-ESS_CHAINS, ESS_TUNE, ESS_DRAWS, ESS_SWEEPS, ESS_TARGET, ESS_PROBA_DRAWS = 2, 500, 500, 4, 0.3, 64
+# phase 14's ops-level ESS, cut from GPC.sample's 500 + 500 for time: phase 19
+# (b) runs GPC.sample(latent=True) at the defaults on the same problem
+ESS_CHAINS, ESS_TUNE, ESS_DRAWS, ESS_SWEEPS, ESS_TARGET, ESS_PROBA_DRAWS = 2, 100, 100, 4, 0.3, 64
 ESS_ACCEPT = (0.1, 0.6)
 ESS_ACC_SLACK = 0.05  # line accuracy at most this far below phase 11's Laplace accuracy
 
@@ -2277,7 +2327,7 @@ def _natural_median(samples):
 def phase13_samplers(dense):
     """GP.sample's ops path on phase 12a's problem and MAP fit: ChEES (16
     chains batched, tune 100, draws 100), then fixed-length HMC (2 chains,
-    32 leapfrog steps, tune/draws 100/100), both on the chain-batched exact
+    32 leapfrog steps, tune/draws 50/50), both on the chain-batched exact
     objective; checks, and one batched 16-chain value+grad timed with each
     factor at the seam."""
     spec, la, lb = dense["spec"], dense["la"], dense["lb"]
@@ -2353,7 +2403,7 @@ def phase13_samplers(dense):
 
 def phase14_ess(p, laplace):
     """GPC.sample(latent=True)'s ops path on phase 11's problem from its
-    Laplace fit (2 chains batched, tune 500, draws 500, 4 ESS sweeps), then
+    Laplace fit (2 chains batched, tune 100, draws 100, 4 ESS sweeps), then
     latent_conditional_proba with 64 subsampled draws on the line."""
     spec = fitc_spec("bernoulli")
     RbfGram.launches = 0
@@ -2498,6 +2548,27 @@ def kron_f64_gaps(gp):
     return f32, f64, abs(f32 - f64) / gp._yz.shape[0], dmean, dvar
 
 
+@torch.no_grad()
+def kron_mean_sum_gaps(gp):
+    """The Kronecker grid mean B·(α·Kxs) against f64 at the same MAP, with
+    the model's own f32 Kxs, α and B summed in f32 (``kron_predict_diag``'s
+    sum), the same f32 pieces summed in f64, and the f32 Kxs with the f64
+    α and B: the largest standardized gap of each, and the f64 mean's
+    largest magnitude."""
+    spec, dev, cache = gp._spec, gp._xc_locs.device, gp._kron_cache
+    points = _grid_tall(gp, gp.grid_points)
+    xg = torch.as_tensor(points[: points.shape[0] // len(MODEL_OUTPUTS), : len(MODEL_DIMS)], dtype=gp._dtype,
+                         device=dev)
+    Kxs = _continuous_gram(spec, gp._params, gp._xc_locs, xg)
+    p64 = {k: v.double() for k, v in gp._params.items()}
+    xl64 = gp._xc_locs.double()
+    c64 = kron_cache(spec, p64, xl64, gp._Y.double())
+    m64 = kron_predict_diag(spec, p64, c64, xg.double())[0]
+    return dict(f32_sum=float(((cache.B @ (cache.alpha @ Kxs)).double() - m64).abs().max()),
+                f64_sum=float((cache.B.double() @ (cache.alpha.double() @ Kxs.double()) - m64).abs().max()),
+                f64_alpha=float((c64.B @ (c64.alpha @ Kxs.double()) - m64).abs().max()), scale=float(m64.abs().max()))
+
+
 def phase15_model_layer():
     """The model layer on the card through tools/array_table.py's GP: (a)
     bench.py's table (5,120 locations, two outputs) fit at find_MAP's
@@ -2535,6 +2606,10 @@ def phase15_model_layer():
         f"{BASIN_TOL}) | standardized grid vs f64 at the f32 MAP: max|dmean| {dmean:.3e} max|dvar| {dvar:.3e} (tol "
         f"{GRID_TOL}) | cor {np.asarray(y.cor).round(6).tolist()} | grid mean RMSE vs truth in the data's box "
         f"{rmse} (tol {MODEL_RMSE_TOL}) | peak {peak:.2f} GiB | rbf_gram by shape {dict(shapes)}")
+    su = kron_mean_sum_gaps(gp)
+    log(f"[gp_model] (a) grid mean vs f64 (standardized, largest |mean| {su['scale']:.3f}): B·(α·Kxs) summed in f32 "
+        f"{su['f32_sum']:.3e} | the same f32 Kxs, α and B summed in f64 {su['f64_sum']:.3e} | f32 Kxs with the f64 "
+        f"α and B {su['f64_alpha']:.3e}")
     for o in MODEL_OUTPUTS:
         assert np.isfinite(y.get(o).μ).all() and np.isfinite(y.get(o).σ2).all() and (y.get(o).σ2 >= 0).all(), o
     assert per_pt <= BASIN_TOL, f"gp_model (a): f32 and f64 objectives differ by {per_pt} nats/pt"
@@ -2577,6 +2652,7 @@ SURFACE_FD_RTOL = 1e-4  # f64 gradient against f64 central differences, of the l
 SURFACE_ACQ_TOL = 1e-3  # |f32 − f64| of the acquisition at the candidate, log units (phase 12's rule)
 SURFACE_TRACE_DRAWS = 16  # draw_point_samples(source=trace)'s n_samples
 SURFACE_BO_N = BO_N  # (b): phase 12a's problem as a table
+SURFACE_CHEES = dict(tune=250, draws=250)  # (b)'s GP.sample(): 16 chains, cut from 500 + 500 for time
 
 
 def f64_twin(gp):
@@ -2782,14 +2858,15 @@ def phase16_model_surface(gp_a, ls_median_ops):
     tools/array_table.py's GP: (a) on phase 15 (a)'s fitted Kronecker model
     (5,120 locations × 2 outputs, the 100×100 grid): joint grid draws,
     mean gradients and propose(q=2); (b) on phase 12a's N = 512 problem as
-    a table: GP.fit, propose(q=4), GP.sample() (ChEES at its defaults),
-    GP.sample(sampler='hmc') at phase 13's cut, draws from the ChEES trace."""
+    a table: GP.fit, propose(q=4), GP.sample() (ChEES, 16 chains, cut to
+    250 + 250), GP.sample(sampler='hmc') at phase 13's cut, draws from the
+    ChEES trace."""
     t_start = time.perf_counter()
     table_b = surface_table(SURFACE_BO_N)
     RbfGram.launches = 0
     with count_rbf_shapes("gp_surface") as shapes:
         res_a = run_surface_a(gp_a)
-        gp_b, res_b = run_surface_b(table_b, "cuda", torch.float32,
+        gp_b, res_b = run_surface_b(table_b, "cuda", torch.float32, chees_kw=SURFACE_CHEES,
                                     hmc_kw=dict(tune=HMC_TUNE, draws=HMC_DRAWS, n_leapfrog=HMC_LEAP))
     launches = RbfGram.launches
     seconds = time.perf_counter() - t_start
@@ -3098,6 +3175,408 @@ def phase18_gp_sparse():
     return launches, seconds
 
 
+# ------------------------------------------------------------------
+# Phase 19: the classifier through the model layer (GPC)
+# ------------------------------------------------------------------
+
+GPC_DRAWS = N_LATENT_DRAWS  # (a)'s grid draws and (d)'s line draws
+GPC_SAMPLER_N = BO_N  # (c): phase 11's generator at 512 rows
+GPC_SPARSE_SAMPLER_N, GPC_SPARSE_SAMPLER_NU = LAPLACE_N, 128  # (e)
+# What each run passes to find_MAP and sample on the card. (a)-(c) fit at
+# find_MAP's defaults (8 restarts, maxiter 300, tol 1e-6) and (b) samples at
+# the defaults (ESS, 2 chains, 500 + 500). Cut for time (PERF.md §4; phase
+# 19 took 311.8 s with (c)'s ChEES at 200 + 200, HMC at 25 + 25 and (e)'s
+# ChEES at 25 + 25 on one H100): (c)'s ChEES (16 chains) from 500 + 500 to
+# 100 + 100, its HMC (2 chains, 32 leapfrog steps) from 500 + 500 to
+# 10 + 10; (d) and (e) fit at phase 10's settings (8 restarts, maxiter 60,
+# cut from 300) and (e)'s ChEES (16 chains) is cut to 12 + 12.
+GPC_CARD = dict(dense_map={}, latent={}, chees=dict(draws=100, tune=100), hmc=dict(sampler="hmc", draws=10, tune=10),
+                sparse_map=dict(n_restarts=FITC_RESTARTS, maxiter=FITC_MAXITER), sparse_chees=dict(draws=12, tune=12))
+# The same calls at a few iterations each: the CPU rehearsal of phase 19
+# (tests/test_torch_gpc.py)
+GPC_SMALL = dict(dense_map=dict(n_restarts=2, maxiter=30), latent=dict(draws=10, tune=10),
+                 chees=dict(draws=6, tune=6), hmc=dict(sampler="hmc", draws=3, tune=3, n_leapfrog=4),
+                 sparse_map=dict(n_restarts=2, maxiter=10), sparse_chees=dict(draws=3, tune=3, chains=4))
+
+
+def gpc_table(n, seed):
+    """``make_fitc_problem``'s rows (seed 0: phases 9-10's, seed 1: phase
+    11's) and labels 1[y > 0] as float64 columns x1, x2, label; and the
+    200-point line's x1."""
+    p = make_fitc_problem(n, "cpu", torch.float32, seed=seed, kmeans=False)
+    X = p["xc"].numpy().astype(np.float64)
+    cols = {"x1": X[:, 0], "x2": X[:, 1], "label": p["yb"].numpy().astype(np.float64)}
+    return ArrayTable(cols, outputs=["label"]), p["g"]
+
+
+def _gpc_fit(table, device, dtype, build_kw, map_kw):
+    """``ArrayTableGPC(table).fit(...)`` of the label on (x1, x2): the model
+    and ``GP.fit``'s phase seconds."""
+    timings.clear()
+    gp = ArrayTableGPC(table, outputs=["label"], dtype=dtype, device=device)
+    gp.fit(outputs=["label"], continuous_dims=["x1", "x2"], heteroskedastic_outputs=False, MAP_kwargs=map_kw,
+           **build_kw)
+    _sync(device)
+    return gp, timings.last()
+
+
+def gpc_line(gp, g):
+    """The 200-point line x1 = g, x2 = 0 in natural units."""
+    return gp.parray(x1=np.asarray(g, dtype=np.float64), x2=np.zeros(len(g)))
+
+
+def gpc_accuracy(prob, g):
+    """Share of the line where the predicted class is the noise-free sign."""
+    return float(np.mean((np.asarray(prob, dtype=np.float64) > 0.5) == (np.sin(1.3 * np.asarray(g, np.float64)) > 0)))
+
+
+def gpc_twin(gp):
+    """The fitted classifier's f64 twin at the same MAP (the plain path)."""
+    tw = f64_twin(gp)
+    if gp._mask is not None:
+        tw._mask = gp._mask.double()
+    if gp.sparse:
+        tw._xu_c = gp._xu_c.double()
+    return tw
+
+
+def gpc_f64_gap(gp):
+    """The f32 objective at the fitted MAP (Laplace, or FITC-Laplace when
+    sparse) against the f64 twin's, in nats per row."""
+    def value(m):
+        u = unconstrain(m._params)
+        la, lb = (torch.as_tensor(a, dtype=m._dtype, device=m._device) for a in (m._ls_alpha, m._ls_beta))
+        if m.sparse:
+            return float(fitc_laplace_neg_logp(m._spec, u, m._xc, m._xk, m._xu_c, m._xu_k, m._yz, la, lb, mask=m._mask))
+        return float(laplace_neg_logp(m._spec, u, m._xc, m._xk, m._yz, la, lb, mask=m._mask))
+
+    with torch.no_grad():
+        f32, f64 = value(gp), value(gpc_twin(gp))
+    return f32, f64, abs(f32 - f64) / gp._yz.shape[0]
+
+
+@torch.no_grad()
+def gpc_mean_sum_gaps(gp, tw, xs, xks, mean):
+    """The latent mean Ks·w, w = m·(y − π(f̂)), at ``xs`` against the f64
+    twin's: in the reference's form (the f32 Newton mode, f32 Ks and
+    weights summed in f32), the same f32 Ks and weights summed in f64, the
+    f32 Ks with the twin's f64 weights (its f64 Newton mode), and the
+    model's own ``mean`` (the port's predictor: the mode in f64 from the
+    f32 Grams): the largest gap of each, the f64 mean's largest magnitude
+    and the two modes' gap."""
+    def weights(model):
+        m = torch.ones_like(model._yz) if model._mask is None else model._mask
+        K = _jittered_gram(model._spec, model._params, model._xc, model._xk, DEFAULT_JITTER)
+        f = laplace_mode(K, model._yz, mask=m)[0]
+        return m * (model._yz - torch.sigmoid(f)), f
+
+    (w, f), (w64, f64) = weights(gp), weights(tw)
+    Ks = gram(gp._spec, gp._params, xs, xks, gp._xc, gp._xk)
+    m64 = gram(tw._spec, tw._params, xs.double(), xks, tw._xc, tw._xk) @ w64
+    return dict(f32_sum=float(((Ks @ w).double() - m64).abs().max()),
+                f64_sum=float((Ks.double() @ w.double() - m64).abs().max()),
+                f64_weights=float((Ks.double() @ w64 - m64).abs().max()), scale=float(m64.abs().max()),
+                mode_gap=float((f.double() - f64).abs().max()),
+                port=float((torch.as_tensor(np.asarray(mean, dtype=np.float64), device=m64.device) - m64).abs().max()))
+
+
+def run_gpc_dense(table, g, device, dtype, map_kw, grid, n_draws, tmp_dir):
+    """(a): ``GPC.fit``, ``predict_grid_proba`` on the grid, the line's
+    ``predict_proba``, ``draw_grid_samples(n_draws)`` and save → load →
+    ``predict_grid_proba``."""
+    _peak_reset(device)
+    l0 = RbfGram.launches
+    gp, stages = _gpc_fit(table, device, dtype, {}, map_kw)
+    fit_launches = RbfGram.launches - l0
+    t0 = time.perf_counter()
+    gp.prepare_grid(resolution=grid)
+    prob_grid = gp.predict_grid_proba()
+    _sync(device)
+    t1 = time.perf_counter()
+    prob_line = gp.predict_proba(gpc_line(gp, g))
+    _sync(device)
+    t2 = time.perf_counter()
+    draws = gp.draw_grid_samples(n_samples=n_draws, seed=0)
+    _sync(device)
+    t3 = time.perf_counter()
+    path = os.path.join(tmp_dir, "gpc.npz")
+    gp.save(path)
+    loaded = ArrayTableGPC.load(path, table, device=device)
+    loaded.prepare_grid(resolution=grid)
+    prob_loaded = loaded.predict_grid_proba()
+    _sync(device)
+    stages.update(predict_grid_proba=t1 - t0, line_proba=t2 - t1, draw_grid_samples=t3 - t2,
+                  save_load_predict=time.perf_counter() - t3)
+    return dict(gp=gp, prob_grid=prob_grid, prob_line=prob_line, draws=np.asarray(draws["label"].values()),
+                loaded_equal=bool(np.array_equal(prob_loaded, prob_grid)), accuracy=gpc_accuracy(prob_line, g),
+                stages=stages, peak_gib=_peak_gib(device),
+                launches={"fit": fit_launches, "rest": RbfGram.launches - l0 - fit_launches})
+
+
+def gpc_dense_readings(r):
+    """(a)'s numbers against the f64 twin at the same MAP: the objective,
+    the grid's probabilities, the latent grid mean's sum in f32 and f64, and
+    the draws' floor beside the latent draws' own spread."""
+    gp = r["gp"]
+    tw = gpc_twin(gp)
+    f32, f64, per_pt = gpc_f64_gap(gp)
+    prob64 = tw.predict_grid_proba()
+    points = np.asarray(_grid_tall(gp, gp.grid_points))
+    xs, xks = gp._split_X(points)
+    mean, var = gp.predict(points)
+    sums = gpc_mean_sum_gaps(gp, tw, xs, xks, mean)
+    with torch.no_grad():
+        prior = gram_diag(gp._spec, gp._params, xs, xks)
+    # the floor joint_draws puts under the factor (ops/posterior.draw_floor)
+    floor = max(DEFAULT_JITTER, xs.shape[0] * torch.finfo(gp._dtype).eps * float(prior.mean()))
+    p = r["draws"].reshape(r["draws"].shape[0], -1).astype(np.float64)
+    with np.errstate(divide="ignore"):
+        logit = np.log(p) - np.log1p(-p)  # ±inf where the f32 logistic saturated
+    dev = logit - np.asarray(mean, dtype=np.float64)[None]
+    ok = np.isfinite(dev)
+    return dict(f32=f32, f64=f64, per_pt=per_pt, dprob=float(np.abs(r["prob_grid"] - prob64).max()), sums=sums,
+                floor=floor, spread_pred=float(np.sqrt(np.mean(np.asarray(var, dtype=np.float64)))),
+                spread_draws=float(np.sqrt(np.mean(dev[ok] ** 2))), draws_finite_logit=float(ok.mean()))
+
+
+def run_gpc_latent(gp, g, sample_kw):
+    """(b): ``sample(latent=True)`` on (a)'s model, then ``predict_proba``
+    on the line over ESS_PROBA_DRAWS of its (θ, f) draws."""
+    dev = gp._device
+    trace, secs, peak = _timed(dev, lambda: gp.sample(latent=True, **sample_kw))
+    prob, p_secs, _ = _timed(dev, lambda: gp.predict_proba(gpc_line(gp, g), source=trace, max_draws=ESS_PROBA_DRAWS))
+    tune = sample_kw.get("tune", 500)
+    return dict(trace=trace, prob=prob, secs=secs, proba_s=p_secs, peak_gib=peak, accuracy=gpc_accuracy(prob, g),
+                iterations=tune + trace["_latent_f"].shape[1], drawn_trials=trace["_stats"]["ess_trials"][:, tune:])
+
+
+def run_gpc_sampler(table, device, dtype, map_kw, chees_kw, hmc_kw):
+    """(c): ``GPC.fit`` then ``sample()`` (ChEES) and ``sample(sampler='hmc')``,
+    counting the calls of the chain-batched objective."""
+    gp, stages = _gpc_fit(table, device, dtype, {}, map_kw)
+    calls = [0]
+    orig = gpc_module.laplace_neg_logp_chains
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return orig(*args, **kwargs)
+
+    gpc_module.laplace_neg_logp_chains = counted
+    try:
+        chees, c_secs, c_peak = _timed(device, lambda: gp.sample(**chees_kw))
+        chees_calls = calls[0]
+        hmc, h_secs, _ = _timed(device, lambda: gp.sample(**hmc_kw))
+    finally:
+        gpc_module.laplace_neg_logp_chains = orig
+    leaps = np.asarray(chees["_stats"]["n_leapfrog"])
+    return dict(gp=gp, stages=stages, chees=chees, hmc=hmc, chees_s=c_secs, hmc_s=h_secs, peak_gib=c_peak,
+                calls=chees_calls, hmc_calls=calls[0] - chees_calls, leapfrog_steps=int(leaps.sum()),
+                iterations=len(leaps))
+
+
+def gpc_median_gap(gp, trace):
+    """The f32 Laplace objective at the trace's natural-space median against
+    f64 there, nats per row."""
+    med = {k: np.median(v.reshape(-1, *v.shape[2:]), axis=0) for k, v in trace.items() if not k.startswith("_")}
+    tw = gpc_twin(gp)
+    vals = []
+    with torch.no_grad():
+        for m in (gp, tw):
+            u = unconstrain({k: torch.as_tensor(v, dtype=m._dtype, device=m._device) for k, v in med.items()})
+            la, lb = (torch.as_tensor(a, dtype=m._dtype, device=m._device) for a in (m._ls_alpha, m._ls_beta))
+            vals.append(float(laplace_neg_logp(m._spec, u, m._xc, m._xk, m._yz, la, lb, mask=m._mask)))
+    return vals[0], vals[1], abs(vals[0] - vals[1]) / gp._yz.shape[0]
+
+
+def run_gpc_sparse(table, g, device, dtype, n_u, map_kw, n_draws, tmp_dir):
+    """(d): ``GPC.fit(sparse=True, n_u)`` (k-means inside ``build_model``),
+    the line's ``predict_proba``, ``draw_point_samples(n_draws)`` there and
+    save → load → the line again."""
+    _peak_reset(device)
+    l0 = RbfGram.launches
+    gp, stages = _gpc_fit(table, device, dtype, dict(sparse=True, n_u=n_u), map_kw)
+    fit_launches = RbfGram.launches - l0
+    line = gpc_line(gp, g)
+    t0 = time.perf_counter()
+    prob = gp.predict_proba(line)
+    _sync(device)
+    t1 = time.perf_counter()
+    draws = gp.draw_point_samples(line, n_samples=n_draws, seed=0)
+    _sync(device)
+    t2 = time.perf_counter()
+    path = os.path.join(tmp_dir, "gpc_sparse.npz")
+    gp.save(path)
+    loaded = ArrayTableGPC.load(path, table, device=device)
+    prob_loaded = loaded.predict_proba(gpc_line(loaded, g))
+    _sync(device)
+    stages.update(line_proba=t1 - t0, draw_point_samples=t2 - t1, save_load_predict=time.perf_counter() - t2)
+    return dict(gp=gp, prob=prob, draws=np.asarray(draws["label"].values()), accuracy=gpc_accuracy(prob, g),
+                loaded_equal=bool(np.array_equal(prob_loaded, prob)), stages=stages, peak_gib=_peak_gib(device),
+                launches={"fit": fit_launches, "rest": RbfGram.launches - l0 - fit_launches})
+
+
+def run_gpc_sparse_sampler(table, device, dtype, n_u, map_kw, chees_kw):
+    """(e): a sparse build and fit, then ``sample()`` (ChEES, the chains
+    evaluated one after another on the FITC-Laplace evidence)."""
+    gp, stages = _gpc_fit(table, device, dtype, dict(sparse=True, n_u=n_u), map_kw)
+    trace, secs, peak = _timed(device, lambda: gp.sample(**chees_kw))
+    return dict(gp=gp, stages=stages, trace=trace, secs=secs, peak_gib=peak)
+
+
+def _trace_finite(trace):
+    return all(np.isfinite(np.asarray(v)).all() for k, v in trace.items() if not k.startswith("_"))
+
+
+def phase19_run(device="cuda", dtype=torch.float32, n_dense=LAPLACE_N, n_sampler=GPC_SAMPLER_N, n_sparse=FITC_N,
+                n_sparse_sampler=GPC_SPARSE_SAMPLER_N, n_u=FITC_NU, n_u_sampler=GPC_SPARSE_SAMPLER_NU, grid=GRID,
+                small=False, tmp_dir=None):
+    """Phase 19's five runs, each with rbf_gram's launch count at 0 just
+    before it and read just after (by shape): (a) the dense classifier on
+    phase 11's generator (seed 1) at ``n_dense`` rows, (b) its latent
+    sampler, (c) a dense classifier at ``n_sampler`` rows and its
+    hyperparameter samplers, (d) the sparse classifier on phase 10's rows
+    and labels at ``n_sparse`` (``n_u`` inducing points), (e) a sparse
+    sampler at ``n_sparse_sampler`` rows (``n_u_sampler``). ``small`` takes
+    GPC_SMALL's iterations in place of GPC_CARD's. Returns every result
+    with its readings; asserts nothing."""
+    cfg = GPC_SMALL if small else GPC_CARD
+    out = {}
+
+    def counted(name, fn):
+        RbfGram.launches = 0
+        with count_rbf_shapes(f"gpc_{name}") as shapes:
+            t0 = time.perf_counter()
+            r = fn()
+            _sync(device)
+            r["seconds"] = time.perf_counter() - t0
+        r["rbf_launches"], r["shapes"] = RbfGram.launches, dict(shapes)
+        out[name] = r
+        return r
+
+    with tempfile.TemporaryDirectory(dir=tmp_dir or _build.BUILD_DIR) as d:
+        table, g = gpc_table(n_dense, seed=1)
+        a = counted("dense", lambda: run_gpc_dense(table, g, device, dtype, cfg["dense_map"], grid, GPC_DRAWS, d))
+        a.update(gpc_dense_readings(a))
+        counted("latent", lambda: run_gpc_latent(a["gp"], g, cfg["latent"]))
+        sampler_table, _ = gpc_table(n_sampler, seed=1)
+        c = counted("chees", lambda: run_gpc_sampler(sampler_table, device, dtype, cfg["dense_map"], cfg["chees"],
+                                                     cfg["hmc"]))
+        c["median_gap"] = gpc_median_gap(c["gp"], c["chees"])
+        out["hmc"] = dict(trace=c["hmc"], secs=c["hmc_s"], calls=c["hmc_calls"])
+        sparse_table, g_s = gpc_table(n_sparse, seed=0)
+        sp = counted("sparse", lambda: run_gpc_sparse(sparse_table, g_s, device, dtype, n_u, cfg["sparse_map"],
+                                                      GPC_DRAWS, d))
+        sp["f32"], sp["f64"], sp["per_pt"] = gpc_f64_gap(sp["gp"])
+        sp["dprob"] = float(np.abs(sp["prob"] - gpc_twin(sp["gp"]).predict_proba(gpc_line(sp["gp"], g_s))).max())
+        del sparse_table, sp["gp"]
+        sampler_sparse_table, _ = gpc_table(n_sparse_sampler, seed=1)
+        counted("sparse_chees", lambda: run_gpc_sparse_sampler(sampler_sparse_table, device, dtype, n_u_sampler,
+                                                              cfg["sparse_map"], cfg["sparse_chees"]))
+    return out
+
+
+GPC_SLACK = ESS_ACC_SLACK  # line accuracy at most this far below the ops-level run's (phases 10, 11) or (a)'s
+
+
+def _log_runs_launches(out):
+    for name, r in out.items():
+        if "rbf_launches" in r:
+            log(f"[gpc] ({name}) {r['seconds']:.3f} s | peak {r.get('peak_gib') or 0:.2f} GiB | rbf_gram launches "
+                f"{r['rbf_launches']} by shape {r['shapes']}")
+
+
+def phase19_gpc(laplace_accuracy, fitc_laplace_accuracy):
+    """The classifier through the model layer (``ArrayTableGPC``, f32):
+    phase19_run's five runs at full size, logged and checked."""
+    t_start = time.perf_counter()
+    out = phase19_run()
+    seconds = time.perf_counter() - t_start
+    _log_runs_launches(out)
+    a, b, c, h, d, e = (out[k] for k in ("dense", "latent", "chees", "hmc", "sparse", "sparse_chees"))
+
+    gp = a["gp"]
+    _log_gp_stages("gpc (a)", a["stages"])
+    aux = gp._fit_aux
+    su = a["sums"]
+    log(f"[gpc] (a) N={LAPLACE_N}: {len(aux['iters'])} restarts, iterations {aux['iters'].tolist()}, evaluations "
+        f"{aux['evals'].tolist()} | MAP ls (z) {gp.MAP['ls_total'].tolist()} eta {float(gp.MAP['η_total']):.4f} | "
+        f"neg_logp at fit: f32 {a['f32']:.4f} (fit {gp._neg_logp:.4f}) | f64 {a['f64']:.4f} | |diff| "
+        f"{a['per_pt']:.2e} nats/pt (tol {BASIN_TOL}) | grid probabilities vs the f64 twin max|diff| {a['dprob']:.3e} "
+        f"(tol {GRID_TOL}) | line accuracy {a['accuracy']:.3f} (phase 11 {laplace_accuracy:.3f}) | loaded grid "
+        f"bit-equal {a['loaded_equal']}")
+    log(f"[gpc] (a) latent grid mean vs f64 (largest |mean| {su['scale']:.3f}): the reference's form (f32 mode, "
+        f"Ks·(y − π) summed in f32) {su['f32_sum']:.3e} | the same f32 Ks and weights summed in f64 "
+        f"{su['f64_sum']:.3e} | "
+        f"f32 Ks with the f64 mode's weights {su['f64_weights']:.3e} (modes max|df| {su['mode_gap']:.3e}) | the port's "
+        f"predictor (mode in f64) {su['port']:.3e} | draws: floor "
+        f"{a['floor']:.3e} (sqrt {np.sqrt(a['floor']):.3e}) beside the latent spread sqrt(mean var) "
+        f"{a['spread_pred']:.3e} and the draws' own RMS about the mean {a['spread_draws']:.3e} "
+        f"({100 * a['draws_finite_logit']:.1f}% of the draws unsaturated)")
+    assert a["per_pt"] <= BASIN_TOL, f"gpc (a): f32 and f64 objectives differ by {a['per_pt']} nats/pt"
+    assert a["dprob"] <= GRID_TOL, f"gpc (a): grid probabilities off the f64 twin by {a['dprob']}"
+    assert a["accuracy"] >= laplace_accuracy - GPC_SLACK, f"gpc (a): line accuracy {a['accuracy']}"
+    assert a["draws"].shape == (GPC_DRAWS, GRID, GRID) and np.isfinite(a["draws"]).all(), "gpc (a): grid draws"
+    assert a["loaded_equal"], "gpc (a): the loaded model's grid probabilities differ"
+
+    mh = float(np.mean(b["trace"]["_stats"]["accept_rate"]))
+    log(f"[gpc] (b) sample(latent=True): {b['secs']:.3f} s ({b['secs'] / b['iterations'] * 1e3:.2f} ms/iteration) | "
+        f"predict_proba(source=trace) {b['proba_s']:.3f} s | MH acceptance {mh:.4f} | trials per slice step after "
+        f"tuning mean {float(np.mean(b['drawn_trials'])):.2f} max {int(np.max(b['drawn_trials']))} | line accuracy "
+        f"{b['accuracy']:.3f} ((a) {a['accuracy']:.3f})")
+    assert _trace_finite(b["trace"]) and np.isfinite(b["trace"]["_latent_f"]).all() and np.isfinite(b["prob"]).all()
+    assert ESS_ACCEPT[0] <= mh <= ESS_ACCEPT[1], f"gpc (b): MH acceptance {mh}"
+    assert int(np.max(b["drawn_trials"])) < 200, "gpc (b): a slice step hit the 200-trial cap after tuning"
+    assert b["accuracy"] >= a["accuracy"] - GPC_SLACK, f"gpc (b): line accuracy {b['accuracy']}"
+
+    acc_c = float(c["chees"]["_stats"]["mean_accept"])
+    f32, f64, per_pt = c["median_gap"]
+    st = c["chees"]["_stats"]
+    log(f"[gpc] (c) N={GPC_SAMPLER_N} sample() ChEES 16 chains, {c['iterations']} iterations: {c['chees_s']:.3f} s, "
+        f"{c['chees_s'] / c['iterations']:.4f} s/iteration | leapfrog steps per iteration "
+        f"{c['leapfrog_steps'] / c['iterations']:.2f} | {c['calls']} chain-batched objective calls "
+        f"({c['chees_s'] / c['calls'] * 1e3:.3f} ms each) | acceptance {acc_c:.4f} | step "
+        f"{float(st['step_size']):.4f} T {float(st['trajectory_length']):.4f} | neg_logp at the median: f32 "
+        f"{f32:.4f} f64 {f64:.4f} |diff| {per_pt:.2e} nats/pt | HMC 2 chains: {h['secs']:.3f} s, {h['calls']} calls, "
+        f"acceptance {float(h['trace']['_stats']['mean_accept']):.4f}")
+    gpc_c = c["gp"]
+    u_last = unconstrain({k: torch.as_tensor(v[:, -1], dtype=gpc_c._dtype, device=gpc_c._device)
+                          for k, v in c["chees"].items() if not k.startswith("_")})
+    la, lb = (torch.as_tensor(x, dtype=gpc_c._dtype, device=gpc_c._device) for x in (gpc_c._ls_alpha, gpc_c._ls_beta))
+    _eval_breakdown("gpc (c) 16-chain Laplace value+grad", lambda u: laplace_neg_logp_chains(
+        gpc_c._spec, u, gpc_c._xc, gpc_c._xk, gpc_c._yz, la, lb).sum(), u_last)
+    assert _trace_finite(c["chees"]) and _trace_finite(h["trace"]), "gpc (c): non-finite draws"
+    assert CHEES_ACCEPT[0] <= acc_c <= CHEES_ACCEPT[1], f"gpc (c): ChEES acceptance {acc_c}"
+    assert c["calls"] == 1 + c["leapfrog_steps"], f"gpc (c): {c['calls']} calls for {c['leapfrog_steps']} steps"
+    assert per_pt <= BASIN_TOL, f"gpc (c): f32 and f64 objectives differ by {per_pt} nats/pt at the median"
+
+    _log_gp_stages("gpc (d)", d["stages"])
+    log(f"[gpc] (d) N={FITC_N} sparse, M={FITC_NU}: neg_logp at fit f32 {d['f32']:.4f} | f64 {d['f64']:.4f} | "
+        f"|diff| {d['per_pt']:.2e} nats/pt (tol {BASIN_TOL}) | line probabilities vs the f64 twin max|diff| "
+        f"{d['dprob']:.3e} | line accuracy {d['accuracy']:.3f} (phase 10 "
+        f"{fitc_laplace_accuracy:.3f}) | draws {d['draws'].shape} | loaded line bit-equal {d['loaded_equal']}")
+    assert d["per_pt"] <= BASIN_TOL, f"gpc (d): f32 and f64 objectives differ by {d['per_pt']} nats/pt"
+    assert d["accuracy"] >= fitc_laplace_accuracy - GPC_SLACK, f"gpc (d): line accuracy {d['accuracy']}"
+    assert d["draws"].shape == (GPC_DRAWS, FITC_LINE) and np.isfinite(d["draws"]).all(), "gpc (d): draws"
+    assert d["loaded_equal"], "gpc (d): the loaded model's line differs"
+
+    acc_e = float(e["trace"]["_stats"]["mean_accept"])
+    leaps_e = np.asarray(e["trace"]["_stats"]["n_leapfrog"])
+    log(f"[gpc] (e) N={GPC_SPARSE_SAMPLER_N} sparse, M={GPC_SPARSE_SAMPLER_NU}: sample() ChEES 16 chains chain by "
+        f"chain, {len(leaps_e)} iterations: {e['secs']:.3f} s | leapfrog steps per iteration {leaps_e.mean():.2f} "
+        f"({e['secs'] / max(int(leaps_e.sum()), 1) / 16 * 1e3:.2f} ms a chain's value+grad) | acceptance {acc_e:.4f} | "
+        f"phase 19 took {seconds:.1f} s")
+    assert _trace_finite(e["trace"]), "gpc (e): non-finite draws"
+    assert CHEES_ACCEPT[0] <= acc_e <= CHEES_ACCEPT[1], f"gpc (e): ChEES acceptance {acc_e}"
+    for name, r in out.items():
+        if "rbf_launches" in r:
+            assert r["rbf_launches"] > 0 and sum(r["shapes"].values()) == r["rbf_launches"], \
+                f"gpc ({name}): rbf_gram launches {r['rbf_launches']}, {r['shapes']}"
+    launches = sum(r.get("rbf_launches", 0) for r in out.values())
+    del out
+    torch.cuda.empty_cache()
+    return launches, seconds
+
+
 def _rbf_bound(n, m, d):
     bytes_s = 4.0 * (n * d + m * d + n * m) / HBM_BYTES_PER_S
     ops_s = n * m * (3.0 * d + 2.0) / FP32_PEAK
@@ -3133,18 +3612,20 @@ def main():
     dense_launches, _, _ = phase8_dense(breakdown="--dense-breakdown" in sys.argv[1:])
     phase8b_blocked_backward()
     p, fitc_launches = phase9_fitc()
-    fitc_laplace_launches = phase10_fitc_laplace(p)
+    fitc_laplace_launches, fitc_laplace_accuracy = phase10_fitc_laplace(p)
     del p
     laplace_launches, _, _, lap_p, lap_r = phase11_laplace()
     bo_runs, dense = phase12_bo()
     sampler_runs, _, chees_ls = phase13_samplers(dense)
     ess_launches, _ = phase14_ess(lap_p, lap_r)
-    del lap_p
+    laplace_accuracy = lap_r["accuracy"]
+    del lap_p, lap_r
     gp_launches, _, gp_a = phase15_model_layer()
     surface_launches, _ = phase16_model_surface(gp_a, chees_ls)
     del gp_a
     gp_iter_launches, _ = phase17_gp_iterative(ops_map_ls)
     gp_sparse_launches, _ = phase18_gp_sparse()
+    gpc_launches, _ = phase19_gpc(laplace_accuracy, fitc_laplace_accuracy)
     sms, mhz, peak = _fp32_peak_of_card()
     log(f"[card] {sms} SMs at max {mhz:.0f} MHz: FP32 FMA peak {peak / 1e12:.1f} TFLOP/s "
         f"(bounds use the data sheet's {FP32_PEAK / 1e12:.0f})")
@@ -3161,14 +3642,14 @@ def main():
          "launches": kron_launches["total"] + iter_launches["rbf_gram"] + dense_launches["rbf_gram"]
          + fitc_launches + fitc_laplace_launches + laplace_launches + sum(r["launches"] for r in bo_runs)
          + sampler_runs["chees"][0] + sampler_runs["hmc"][0] + ess_launches + gp_launches + surface_launches
-         + gp_iter_launches["rbf_gram"] + gp_sparse_launches,
+         + gp_iter_launches["rbf_gram"] + gp_sparse_launches + gpc_launches,
          "launches_by_path": {"kronecker": kron_launches["total"], "iterative": iter_launches["rbf_gram"],
                               "dense": dense_launches["rbf_gram"], "fitc": fitc_launches,
                               "fitc_laplace": fitc_laplace_launches, "laplace": laplace_launches,
                               "bo": sum(r["launches"] for r in bo_runs), "chees": sampler_runs["chees"][0],
                               "hmc": sampler_runs["hmc"][0], "ess": ess_launches, "gp_model": gp_launches,
                               "gp_surface": surface_launches, "gp_iterative": gp_iter_launches["rbf_gram"],
-                              "gp_sparse": gp_sparse_launches},
+                              "gp_sparse": gp_sparse_launches, "gpc": gpc_launches},
          "launches_by_path_and_shape": {path: dict(c) for path, c in RBF_SHAPES.items()},
          "max_abs_err": rbf_max_abs, "ms": k_ms, "plain_ms": p_ms, "bound_ms": rb, "bound_fp32_ms": rb,
          "bound_by": rby,

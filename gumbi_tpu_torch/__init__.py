@@ -4,7 +4,8 @@ A second package beside the JAX reference ``gumbi_tpu``. It carries the
 engine that ``GP.fit`` and ``predict_grid`` drive: kernels, Cholesky
 likelihoods with analytic backward, priors, the Kronecker MLL, L-BFGS with
 multi-restart, and posterior prediction; and the model layer on top of it
-(``GP``, ``Regressor``, the structured arrays and the ``Standardizer``),
+(``GP``, the classifier ``GPC``, ``Regressor``, the structured arrays and
+the ``Standardizer``, with the reference's ``regression`` aliases),
 with ``ParrayPlotter`` and the matplotlib styles of ``style``.
 The hand kernels are CUDA C++ for ``sm_90a`` (``csrc/``), built with nvcc
 at first use.
@@ -32,6 +33,7 @@ from . import convert, ops, utils  # noqa: E402,F401
 # imported on first access: name → (module, attribute).
 _LAZY = {
     "GP": ("models", "GP"),
+    "GPC": ("models", "GPC"),
     "Regressor": ("models", "Regressor"),
     "Standardizer": ("standardizer", "Standardizer"),
     "LayeredArray": ("arrays", "LayeredArray"),
@@ -53,8 +55,8 @@ _LAZY = {
     "ParrayPlotter": ("plotting", "ParrayPlotter"),
     "__version__": ("versions", "__version__"),
 }
-_LAZY_MODULES = ("models", "arrays", "array_utils", "standardizer", "aggregation", "data", "plotting", "style",
-                 "versions")
+_LAZY_MODULES = ("models", "regression", "arrays", "array_utils", "standardizer", "aggregation", "data", "plotting",
+                 "style", "versions")
 
 
 def __getattr__(name):

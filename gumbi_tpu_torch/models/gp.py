@@ -14,7 +14,8 @@ them, the ``predict_grad`` family differentiates the posterior mean by
 autograd, :meth:`sample` runs ChEES or HMC over the hyperparameters and
 :meth:`propose` (``q=``) maximizes qLogNEI/qLogNEHVI; :meth:`save`/
 :meth:`load` use the reference's npz format, so a file saved by either
-package loads in the other. The model family, the structure choice
+package loads in the other (a classifier's save too: it loads as a latent
+model, ``models/gpc.py``). The model family, the structure choice
 (Hadamard, Kronecker auto-selection, Independent), the priors and the
 starting points are the reference's.
 
@@ -27,9 +28,8 @@ seeded as the reference seeds its JAX keys: the same distributions, not the
 same numbers (``stream=`` replays any other stream).
 
 Paths of later steps raise ``NotImplementedError`` naming the step of the
-roadmap's first queue that ports them: loading a classifier's save (13,
-with ``GPC``), ``heteroskedastic_inputs=True`` (15), ``mesh=``/
-``shard_data=`` (19).
+roadmap's first queue that ports them: ``heteroskedastic_inputs=True``
+(15, in ``build_model`` and ``load``), ``mesh=``/``shard_data=`` (19).
 """
 
 from __future__ import annotations
@@ -1722,15 +1722,16 @@ class GP(Regressor):
     def load(cls, path, dataset, device=None):
         """Rebuild a fitted GP from :meth:`save` output (either package's)
         plus its data, on ``device`` (the CUDA card unless the caller asks
-        for the CPU) in that device's model dtype."""
+        for the CPU) in that device's model dtype. A classifier's save
+        (``likelihood='bernoulli'``) loads as a latent model, with its mask
+        and inducing points and no Gaussian cache, as the reference's does;
+        ``GPC.load`` gives a :class:`~gumbi_tpu_torch.models.GPC`."""
         with np.load(path, allow_pickle=False) as z:
             meta = json.loads(str(z["__meta__"]))
             arrays = {k: z[k] for k in z.files if k != "__meta__"}
         if any(k.startswith("noise") for k in arrays):
             raise _later("loading a heteroskedastic-input model", 15)
         spec = spec_from_reference(meta["spec"])
-        if spec.likelihood != "gaussian":
-            raise _later("loading a classifier (GPC)", 13)
 
         gp = cls(dataset, outputs=meta["outputs"], seed=meta["seed"], device=device)
         for attr in (
@@ -1750,6 +1751,9 @@ class GP(Regressor):
         gp.model_specs = cls._restore_model_specs(gp.model_specs, gp.stdzr)
         gp._spec = spec
         gp.model = spec
+        if spec.likelihood == "bernoulli":
+            gp.latent = True
+            gp._cache = None
 
         gp._xc = gp._tensor(arrays["xc"])
         gp._xk = gp._index(arrays["xk"])
@@ -1796,7 +1800,9 @@ class GP(Regressor):
             gp._params = params
             gp.MAP = _numpy(params)
             with torch.no_grad():
-                if gp._structure == "Kronecker":
+                if spec.likelihood == "bernoulli":
+                    pass  # the classifier predicts through the Laplace predictor
+                elif gp._structure == "Kronecker":
                     gp._kron_cache = kron_cache(gp._spec, gp._params, gp._xc_locs, gp._Y)
                 elif not gp.sparse:
                     # an iterative fit's save loads without its iterative

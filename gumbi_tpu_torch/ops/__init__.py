@@ -71,6 +71,7 @@ from .laplace import (  # noqa: F401
     laplace_mll,
     laplace_mode,
     laplace_neg_logp,
+    laplace_neg_logp_chains,
     laplace_predict,
 )
 from .linalg import quad_and_logdet, spd_solve  # noqa: F401

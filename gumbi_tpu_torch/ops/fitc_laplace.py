@@ -15,7 +15,7 @@ Every factor here is :func:`.linalg.cholesky_nan` (NaN where not PD, as
 ``jnp.linalg.cholesky``); a swap of the ``linalg.safe_cholesky`` seam does
 not reach it, as the reference's ``_chol_and_alpha`` swap does not.
 
-Four named divergences; at f64 the port gives the reference's numbers:
+Five named divergences; at f64 the port gives the reference's numbers:
 - the inducing Gram's floor clears the dtype's rounding
   (:func:`_whitened_features`), equal to the reference's at f64;
 - the Newton step computes the reference's iterate without forming K·b
@@ -25,7 +25,10 @@ Four named divergences; at f64 the port gives the reference's numbers:
   ``jnp.sqrt(jnp.maximum(W, 0))`` gives NaN gradients for any masked
   design, where W = 0. The value is the same;
 - the test-point covariance Φ* G Φ*ᵀ is formed as Φ*Φ*ᵀ − (Lm⁻¹Φ*ᵀ)ᵀ(Lm⁻¹Φ*ᵀ)
-  (:func:`_test_features`), without the reference's P − P M⁻¹ P.
+  (:func:`_test_features`), without the reference's P − P M⁻¹ P;
+- the predictor's features, Newton mode and mean are computed in f64 from
+  the model's Grams (:func:`_test_features`); the evidence stays in the
+  model dtype.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ __all__ = [
 ]
 
 
-def _whitened_features(spec: GPSpec, params, xc, xk, xu_c, xu_k, jitter):
+def _whitened_features(spec: GPSpec, params, xc, xk, xu_c, xu_k, jitter, work=None):
     """Φ = K_fu L_uu⁻ᵀ (N, m), the FITC diagonal correction D (N,) and L_uu.
 
     The inducing Gram's floor is max(100·jitter, m·eps·mean diag Kuu): the
@@ -57,15 +60,18 @@ def _whitened_features(spec: GPSpec, params, xc, xk, xu_c, xu_k, jitter):
     (always at f64), else :func:`.fitc._stabilized_kuu`'s relative rule. A
     named divergence: at f32, m = 512 and a prior variance above ~1.6 the
     reference's 1e-4 lies under Kuu's rounding floor and its factor fails
-    or loses every digit.
+    or loses every digit. ``work`` (a dtype) takes the Grams there before
+    the factor and the solve; the floor stays the Grams' own dtype's.
     """
     Kuu = gram(spec, params, xu_c, xu_k, xu_c, xu_k)
     m_u = Kuu.shape[0]
     floor = torch.clamp(m_u * torch.finfo(Kuu.dtype).eps * torch.diagonal(Kuu).mean(), min=100.0 * jitter)
-    Luu = cholesky_nan(Kuu + floor * torch.eye(m_u, dtype=Kuu.dtype, device=Kuu.device))
-    Kfu = gram(spec, params, xc, xk, xu_c, xu_k)  # (N, m)
+    work = Kuu.dtype if work is None else work
+    Kuu = Kuu.to(work)
+    Luu = cholesky_nan(Kuu + floor.to(work) * torch.eye(m_u, dtype=work, device=Kuu.device))
+    Kfu = gram(spec, params, xc, xk, xu_c, xu_k).to(work)  # (N, m)
     Phi = torch.linalg.solve_triangular(Luu, Kfu.T, upper=False).T  # (N, m)
-    D = gram_diag(spec, params, xc, xk) - (Phi * Phi).sum(1)
+    D = gram_diag(spec, params, xc, xk).to(work) - (Phi * Phi).sum(1)
     D = torch.clamp(D, min=0.0) + jitter
     return Phi, D, Luu
 
@@ -150,7 +156,8 @@ def fitc_laplace_neg_logp(
 
 
 def _test_features(spec, params, xc, xk, xu_c, xu_k, y, xc_new, xk_new, jitter, n_iter, mask):
-    """(mean, Φ*, Lm⁻¹Φ*ᵀ) at new points: mean* = Φ* Φᵀ (y − π̂).
+    """(mean, Φ*, Lm⁻¹Φ*ᵀ) at new points: mean* = Φ* Φᵀ (y − π̂), in the
+    Grams' dtype.
 
     The reference's Φ* G Φ*ᵀ with G = Uᵀ B⁻¹ U = P − P M⁻¹ P is, in exact
     arithmetic, Φ*Φ*ᵀ − (Lm⁻¹Φ*ᵀ)ᵀ(Lm⁻¹Φ*ᵀ), as G = I − M⁻¹. A named
@@ -158,14 +165,25 @@ def _test_features(spec, params, xc, xk, xu_c, xu_k, y, xc_new, xk_new, jitter, 
     grows with N), and at f32 it pushes the latent covariance's smallest
     eigenvalues far below zero; this form has no such difference
     (``tools/probe_laplace_precision.py`` measures both).
+
+    A second one, as :func:`.laplace._latent_at`'s: Φ, the Newton mode, the
+    weights and the mean's sums are computed in f64 from the model's Grams
+    (with the Grams' own floor). At f32 (N = 20,000, m = 128, η = 7.8:
+    ``tests/test_torch_gpc.py``) the f32 features and mode put the latent
+    mean 6.2e-3 from an f64 evaluation with the same floor; in f64 from the
+    f32 Grams, 5.9e-4. At f64 this is the reference's computation, number
+    for number.
     """
+    y = y.double()
     m = _ones_or(mask, y)
-    Phi, D, Luu = _whitened_features(spec, params, xc, xk, xu_c, xu_k, jitter)
+    Phi, D, Luu = _whitened_features(spec, params, xc, xk, xu_c, xu_k, jitter, work=torch.float64)
     f, _, (_, _, Lm) = fitc_laplace_mode(Phi, D, y, n_iter, mask=m)
     Ksu = gram(spec, params, xc_new, xk_new, xu_c, xu_k)  # (M*, m)
+    dtype, Ksu = Ksu.dtype, Ksu.double()
     Phi_s = torch.linalg.solve_triangular(Luu, Ksu.T, upper=False).T  # (M*, m)
     mean = Phi_s @ (Phi.T @ (m * (y - torch.sigmoid(f))))
-    return mean, Phi_s, torch.linalg.solve_triangular(Lm, Phi_s.T, upper=False)
+    S = torch.linalg.solve_triangular(Lm, Phi_s.T, upper=False)
+    return mean.to(dtype), Phi_s.to(dtype), S.to(dtype)
 
 
 def fitc_laplace_predict(

@@ -19,6 +19,9 @@ equal at f64).
     table = ArrayTable({"x1": x1, "x2": x2, "y1": y1, "y2": y2}, outputs=["y1", "y2"])
     gp = ArrayTableGP(table, outputs=["y1", "y2"]).fit(continuous_dims=["x1", "x2"])
     gp.prepare_grid(); y = gp.predict_grid()
+
+:class:`ArrayTableGPC` is the classifier over the same table: ``GPC`` for
+everything but the data access.
 """
 
 from __future__ import annotations
@@ -27,10 +30,11 @@ import numpy as np
 
 from ..models.base import Regressor
 from ..models.gp import GP
+from ..models.gpc import GPC
 from ..standardizer import Standardizer
 from ..utils import assert_in, assert_is_subset, listify
 
-__all__ = ["ArrayTable", "ArrayTableGP", "table_stdzr"]
+__all__ = ["ArrayTable", "ArrayTableGP", "ArrayTableGPC", "table_stdzr"]
 
 
 def table_stdzr(columns, log_vars=None, logit_vars=None) -> Standardizer:
@@ -195,3 +199,9 @@ class ArrayTableGP(GP, _TableData):
     """The port's :class:`GP` over an :class:`ArrayTable`: ``GP(table,
     outputs=None, seed=2021, dtype=None, device=None)``. Only the data
     access differs; fitting, prediction and ``save``/``load`` are ``GP``'s."""
+
+
+class ArrayTableGPC(GPC, _TableData):
+    """The port's :class:`GPC` over an :class:`ArrayTable` whose output
+    column holds 0/1 labels: ``GPC(table, outputs=None, seed=2021,
+    dtype=None, device=None)``. Only the data access differs."""

@@ -20,12 +20,13 @@ At f64 on the CPU, on the bundled cars table:
 from dataclasses import asdict
 
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
 import gumbi_tpu as gmb
 import gumbi_tpu_torch as gmt
-from gumbi_tpu_torch.tools.array_table import ArrayTable, ArrayTableGP
+from gumbi_tpu_torch.tools.array_table import ArrayTable, ArrayTableGP, ArrayTableGPC
 from gumbi_tpu_torch.utils.profiling import timings
 
 torch.set_num_threads(2)
@@ -240,9 +241,10 @@ def test_load_of_a_later_steps_save_raises(extra, tmp_path):
 
 
 def test_entry_points_without_device_run_on_cuda_or_raise(tmp_path):
-    """With no ``device``, ``GP``, ``GP.load`` and the array table's GP go
-    to the CUDA card; on a host without one they raise instead of carrying
-    on on the CPU. The CPU is used when asked for, at f64."""
+    """With no ``device``, ``GP``, ``GP.load``, the classifier ``GPC`` and
+    ``GPC.load`` and the array table's GP and GPC go to the CUDA card; on a
+    host without one they raise instead of carrying on on the CPU. The CPU
+    is used when asked for, at f64."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device exists")
     gp = _fitted_port()
@@ -260,3 +262,19 @@ def test_entry_points_without_device_run_on_cuda_or_raise(tmp_path):
     assert loaded._xc.device.type == "cpu" and loaded._dtype == torch.float64
     f32 = gmt.GP(gp.data, device="cpu", dtype="float32")
     assert f32._dtype == torch.float32
+
+    labels = {"x": np.linspace(-2, 2, 12), "hit": (np.linspace(-2, 2, 12) > 0).astype(float)}
+    gpc_ds = gmt.DataSet(pd.DataFrame(labels), outputs=["hit"])
+    gpc = gmt.GPC(gpc_ds, device="cpu").fit(outputs=["hit"], continuous_dims=["x"], heteroskedastic_outputs=False,
+                                            MAP_kwargs=dict(n_restarts=1, maxiter=3))
+    assert gpc._xc.device.type == "cpu" and gpc._xc.dtype == torch.float64
+    gpc_path = tmp_path / "gpc.npz"
+    gpc.save(gpc_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gmt.GPC(gpc_ds)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gmt.GPC.load(gpc_path, gpc_ds)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ArrayTableGPC(ArrayTable(labels, outputs=["hit"]))
+    loaded = gmt.GPC.load(gpc_path, gpc_ds, device="cpu")
+    assert isinstance(loaded, gmt.GPC) and loaded._xc.device.type == "cpu" and loaded._dtype == torch.float64
