@@ -272,7 +272,38 @@ Phases (any failure raises and ends the run with a nonzero exit code):
    within 0.005 nats/point of f64; (d) as (a) against phase 10's accuracy,
    the loaded line bit-equal; (e) finite draws, acceptance in [0.5, 0.95];
    ``rbf_gram`` launched on every run.
-20. Print the card, the kernels' JSON line, then ``{"ok": true, ...}`` last.
+20. Heteroskedastic inputs through ``ArrayTableGP`` at f32: tests/test_het.py's
+   generator (sin(1.2x), noise sd 0.05 left of 0, 0.5 right of it) at
+   N = 2,048, ``fit(heteroskedastic_inputs=True)`` at ``find_MAP``'s
+   defaults (8 restarts, maxiter 500, tol 1e-8, ``het_iters=2``: five fits),
+   and a homoskedastic fit of the same table. Prints each fit's seconds and
+   ``rbf_gram`` launches by shape. Checks: noisy − latent variance at
+   x = +1.5 over x = −1.5 above 5; held-out NLPD on 2,048 rows of seed 1
+   at least 0.1 below the homoskedastic fit's; the f32 objective at the MAP
+   (with its ``noise_mult``) within 0.005 nats/point of f64; ``predict``
+   with and without noise on a 200-point line within 1e-2 (standardized) of
+   an f64 twin holding the same MAP and noise GP; save → load bit-equal.
+21. ``mesh=`` on ``torch.distributed``: ``parallel.make_mesh()`` (one NCCL
+   rank on the card, a (1, 1) ('restart', 'data') mesh), every launch count
+   at 0 before each run: (a) phase 15 (a)'s Kronecker model refit with
+   ``find_MAP(mesh=)`` at the defaults; (b) bench_dense50k's problem
+   (N = 16,384, one ExpQuad ARD term over 2 dims) as a one-output table,
+   ``find_MAP(mesh=, shard_data=True)`` at 2 restarts × 8 iterations, then
+   ``predict(mesh=)`` on the 100×100 grid; (c) phase 17's 50,000-row table,
+   ``find_MAP(engine='iterative', mesh=)`` at 2 restarts × 8 iterations
+   (unstaged, as the reference's mesh path), then ``predict_grid``; (d)
+   phase 19 (a)'s classifier and (e) phase 18's ``GP(sparse=True)`` and
+   phase 19 (e)'s sparse classifier, each refit with ``find_MAP(mesh=)``
+   at its phase's settings. Checks: (a), (d), (e) the MAP and value of the
+   single-device fit (rtol 1e-6); (b) ``sharded_gram_mll`` at the fit within
+   0.005 nats/point of f64 and within 1e-5 relative of the dense ``mll``,
+   gradients included, the grid of ``predict(mesh=)`` within 1e-5 relative
+   of ``predict()``, no eager cache; (c) the objective at the fit within
+   5e-4 relative of the single-device ``iter_map_neg_logp`` at the same
+   parameters and probes, grid means within 1e-2 of the exact f64
+   posterior (phase 17's anchor), the general fused matvec launched;
+   ``rbf_gram`` launched on every run. The process group is destroyed.
+22. Print the card, the kernels' JSON line, then ``{"ok": true, ...}`` last.
    Each kernel's ``bound_ms`` is the largest of its bytes over 3.35 TB/s,
    its product flops as three TF32 passes over 495 TFLOP/s, and its other
    operations over the 67 TFLOP/s FP32 peak; ``bound_fp32_ms`` is the
@@ -287,6 +318,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -3171,8 +3203,8 @@ def phase18_gp_sparse():
     assert mean.shape == (FITC_LINE,) and np.isfinite(mean).all() and np.isfinite(var).all() and (var >= 0).all()
     assert dv.shape == (GP_SPARSE_DRAWS, FITC_LINE) and np.isfinite(dv).all(), "gp_sparse: draws"
     assert per_pt <= BASIN_TOL, f"gp_sparse: f32 and f64 objectives differ by {per_pt} nats/pt"
-    del gp, r
-    return launches, seconds
+    del r
+    return launches, seconds, gp
 
 
 # ------------------------------------------------------------------
@@ -3572,7 +3604,500 @@ def phase19_gpc(laplace_accuracy, fitc_laplace_accuracy):
             assert r["rbf_launches"] > 0 and sum(r["shapes"].values()) == r["rbf_launches"], \
                 f"gpc ({name}): rbf_gram launches {r['rbf_launches']}, {r['shapes']}"
     launches = sum(r.get("rbf_launches", 0) for r in out.values())
-    del out
+    gpc_dense, gpc_sparse = out["dense"]["gp"], out["sparse_chees"]["gp"]
+    del out, a, b, c, h, d, e, gp, gpc_c
+    torch.cuda.empty_cache()
+    return launches, seconds, gpc_dense, gpc_sparse
+
+
+# ------------------------------------------------------------------
+# Phase 20: heteroskedastic inputs through GP
+# ------------------------------------------------------------------
+
+HET_N = 2048  # rows of tests/test_het.py's generator (seed 0) and of its held-out set (seed 1)
+HET_MAP = {}  # find_MAP's defaults: 8 restarts, maxiter 500, tol 1e-8, het_iters=2
+HET_RATIO_MIN = 5.0  # tests/test_het.py: noisy − latent variance at x = +1.5 over x = −1.5 (the truth's is 100)
+HET_NLPD_MARGIN = 0.1  # tests/test_het.py: held-out NLPD at least this far below the homoskedastic fit's
+HET_LINE = 200
+HET_SMALL = dict(n=256, map_kw=dict(n_restarts=2, maxiter=40, het_iters=1))
+
+
+def het_table(n, seed):
+    """tests/test_het.py's ``_het_df``: sin(1.2x), noise sd 0.05 for x < 0
+    and 0.5 for x > 0, as columns x, y."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(-2, 2, n))
+    y = np.sin(1.2 * x) + rng.normal(0, np.where(x > 0, 0.5, 0.05))
+    return ArrayTable({"x": x, "y": y}, outputs=["y"])
+
+
+def het_twin(gp):
+    """``f64_twin`` of a heteroskedastic-input model, its noise GP included."""
+    tw = f64_twin(gp)
+    tw._noise_params = {k: v.double() for k, v in gp._noise_params.items()}
+    tw._noise_zt, tw._noise_mult = gp._noise_zt.double(), gp._noise_mult.double()
+    with torch.no_grad():
+        tw._noise_cache = posterior_cache(tw._noise_spec(), tw._noise_params, tw._xc, tw._xk, tw._noise_zt)
+    return tw
+
+
+def _het_noise_var(gp, xs):
+    pts = gp.parray(x=np.asarray(xs, dtype=np.float64))
+    return np.asarray(gp.predict_points(pts, with_noise=True).σ2) - np.asarray(gp.predict_points(pts, with_noise=False).σ2)
+
+
+def _het_nlpd(gp, test):
+    x, y = test.columns["x"], test.columns["y"]
+    up = gp.predict_points(gp.parray(x=x), with_noise=True)
+    mu, var = np.asarray(up.μ, dtype=np.float64), np.asarray(up.σ2, dtype=np.float64)
+    return float(np.mean(0.5 * ((y - mu) ** 2 / var + np.log(2 * np.pi * var))))
+
+
+def _het_objective(m, noise_mult):
+    u = unconstrain(m._params)
+    la, lb = (torch.as_tensor(a, dtype=m._dtype, device=m._device) for a in (m._ls_alpha, m._ls_beta))
+    with torch.no_grad():
+        return float(map_neg_logp(m._spec, u, m._xc, m._xk, m._yz, la, lb, noise_mult=noise_mult))
+
+
+def phase20_run(device="cuda", dtype=torch.float32, n=HET_N, map_kw=HET_MAP, line=HET_LINE, tmp_dir=None):
+    """Phase 20's run: ``fit(heteroskedastic_inputs=True)`` on ``n`` rows of
+    tests/test_het.py's generator, a homoskedastic fit of the same table,
+    and their readings: the noise ratio, held-out NLPD on ``n`` rows of seed
+    1, the f32 objective at the MAP (with its ``noise_mult``) against f64,
+    ``predict`` with and without noise on a ``line``-point line against an
+    f64 twin that holds the same MAP and noise GP, and save → load. Returns
+    the readings with each fit's seconds and rbf_gram's launches by shape;
+    asserts nothing."""
+    table, test = het_table(n, 0), het_table(n, 1)
+    RbfGram.launches = 0
+    with count_rbf_shapes("het") as shapes:
+        timings.clear()
+        t0 = time.perf_counter()
+        gp = ArrayTableGP(table, outputs=["y"], dtype=dtype, device=device)
+        gp.fit(outputs=["y"], continuous_dims=["x"], heteroskedastic_inputs=True, MAP_kwargs=map_kw)
+        _sync(device)
+        het_s, stages = time.perf_counter() - t0, timings.last()
+        t0 = time.perf_counter()
+        gp0 = ArrayTableGP(table, outputs=["y"], dtype=dtype, device=device)
+        gp0.fit(outputs=["y"], continuous_dims=["x"],
+                MAP_kwargs={k: v for k, v in map_kw.items() if k != "het_iters"})
+        _sync(device)
+        homo_s = time.perf_counter() - t0
+        ratio = _het_noise_var(gp, [-1.5, 1.5])
+        ratio0 = _het_noise_var(gp0, [-1.5, 1.5])
+        nlpd, nlpd0 = _het_nlpd(gp, test), _het_nlpd(gp0, test)
+        tw = het_twin(gp)
+        f32, f64 = _het_objective(gp, gp._noise_mult), _het_objective(tw, tw._noise_mult)
+        arr, _, _ = gp._prepare_points_for_prediction(gp.parray(x=np.linspace(-2, 2, line)), output=gp.outputs)
+        gaps = {}
+        for noise in (True, False):
+            m32, v32 = gp.predict(arr, with_noise=noise)
+            m64, v64 = tw.predict(arr, with_noise=noise)
+            gaps[noise] = (float(np.abs(m32 - m64).max()), float(np.abs(v32 - v64).max()))
+        with tempfile.TemporaryDirectory(dir=tmp_dir or _build.BUILD_DIR) as d:
+            path = os.path.join(d, "het.npz")
+            gp.save(path)
+            loaded = ArrayTableGP.load(path, table, device=device)
+        loaded_equal = all(np.array_equal(a, b) for noise in (True, False)
+                           for a, b in zip(gp.predict(arr, with_noise=noise), loaded.predict(arr, with_noise=noise)))
+        _sync(device)
+    return dict(gp=gp, het_s=het_s, homo_s=homo_s, stages=stages, ratio=float(ratio[1] / ratio[0]),
+                ratio0=float(ratio0[1] / ratio0[0]), nlpd=nlpd, nlpd0=nlpd0, f32=f32, f64=f64,
+                per_pt=abs(f32 - f64) / n, gaps=gaps, loaded_equal=loaded_equal,
+                loaded_het=bool(loaded.heteroskedastic_inputs), rbf_launches=RbfGram.launches, shapes=dict(shapes))
+
+
+def phase20_het():
+    """Heteroskedastic inputs through GP (ArrayTableGP, f32, N = 2,048 at
+    find_MAP's defaults), logged and checked."""
+    t_start = time.perf_counter()
+    r = phase20_run()
+    seconds = time.perf_counter() - t_start
+    gp = r["gp"]
+    fits = {k: v for k, v in r["stages"].items() if k.startswith("het_")}
+    log(f"[het] N={HET_N}: fit(heteroskedastic_inputs=True) {r['het_s']:.3f} s, its {len(fits)} fits "
+        + " | ".join(f"{k} {v:.3f} s" for k, v in fits.items()) + f" | homoskedastic fit {r['homo_s']:.3f} s")
+    log(f"[het] noisy − latent variance at x = +1.5 over x = −1.5: {r['ratio']:.2f} (min {HET_RATIO_MIN}; "
+        f"homoskedastic {r['ratio0']:.4f}) | held-out NLPD on {HET_N} rows of seed 1: {r['nlpd']:.4f} against "
+        f"{r['nlpd0']:.4f} homoskedastic (margin {HET_NLPD_MARGIN}) | noise stats (z_m, z_s, l̄) "
+        f"{tuple(round(v, 4) for v in gp._noise_stats)} | MAP ls (z) {gp.MAP['ls_total'].tolist()} sigma "
+        f"{float(gp.MAP['σ']):.4f}")
+    g = r["gaps"]
+    log(f"[het] neg_logp at fit with its noise_mult: f32 {r['f32']:.4f} (fit {gp._neg_logp:.4f}) | f64 {r['f64']:.4f} | "
+        f"|diff| {r['per_pt']:.2e} nats/pt (tol {BASIN_TOL}) | {HET_LINE}-point line vs the f64 twin (standardized): "
+        f"with noise max|dmean| {g[True][0]:.3e} max|dvar| {g[True][1]:.3e}, without {g[False][0]:.3e} "
+        f"{g[False][1]:.3e} (tol {GRID_TOL}) | save -> load bit-equal {r['loaded_equal']} | rbf_gram launches "
+        f"{r['rbf_launches']} by shape {r['shapes']} | phase 20 took {seconds:.1f} s")
+    assert gp.heteroskedastic_inputs and gp._noise_params is not None and r["loaded_het"], "het: no noise GP"
+    assert r["ratio"] > HET_RATIO_MIN, f"het: noise ratio {r['ratio']}"
+    assert r["nlpd"] <= r["nlpd0"] - HET_NLPD_MARGIN, f"het: NLPD {r['nlpd']} against {r['nlpd0']}"
+    assert r["per_pt"] <= BASIN_TOL, f"het: f32 and f64 objectives differ by {r['per_pt']} nats/pt"
+    assert max(max(v) for v in g.values()) <= GRID_TOL, f"het: line off the f64 twin: {g}"
+    assert r["loaded_equal"], "het: the loaded model predicts otherwise"
+    assert r["rbf_launches"] > 0 and sum(r["shapes"].values()) == r["rbf_launches"], \
+        f"het: rbf_gram launches {r['rbf_launches']}, {r['shapes']}"
+    launches = r["rbf_launches"]
+    del r, gp
+    torch.cuda.empty_cache()
+    return launches, seconds
+
+
+# ------------------------------------------------------------------
+# Phase 21: mesh= on torch.distributed (one NCCL rank on the card)
+# ------------------------------------------------------------------
+
+MESH_FIT_RTOL = 1e-6  # one rank runs every start in the single-device order
+MESH_DENSE_MAP = dict(n_restarts=2, maxiter=8)  # (b): cut from find_MAP's 8 restarts × 500 (PERF.md §4)
+# (c): cut from find_MAP's 8 restarts × 500 to 2 × 1. Unstaged from its
+# starts an iteration at N = 50,000 took ~8-11 evaluations of ~1.7-2 s
+# (PCG to the 256 cap): 2 × 8 took 249 s, 2 × 2 78 s on one H100
+MESH_ITER_MAP = dict(n_restarts=2, maxiter=1)
+MESH_REL_TOL = 1e-5  # (b): sharded against single-device values, gradients and grid, relative
+# (b), (f): two f32 gradients of one objective differ by their rounding
+# (each ~2e-5 to 5e-5 of the largest entry from f64 at N = 16,384 at the
+# prior's start, and much more at the fit, where the data term's gradient
+# balances the prior's and its terms cancel), so each is held against f64:
+# the sharded one no further off than twice the dense one
+MESH_GRAD_F64_RATIO = 2.0
+MESH_SMALL = dict(dense_n=128, iter_n=256, iter_cfg=IterConfig(maxiter=128, tol=1e-2, n_probes=8, precond_rank=16,
+                                                               block=32, love_rank=32), grid=12)
+
+
+def _refit_on_mesh(gp, mesh, map_kw):
+    """``find_MAP(mesh=)`` on an already fitted model: (seconds, its
+    single-device MAP and value, the mesh fit's)."""
+    before, f_before = {k: np.array(v) for k, v in gp.MAP.items()}, gp._neg_logp
+    t0 = time.perf_counter()
+    gp.find_MAP(mesh=mesh, **map_kw)
+    _sync(gp._device)
+    return time.perf_counter() - t0, (before, f_before), ({k: np.array(v) for k, v in gp.MAP.items()}, gp._neg_logp)
+
+
+def _map_gap(a, b):
+    """Largest relative gap between two MAPs and between their values."""
+    (ma, fa), (mb, fb) = a, b
+    gm = max(float(np.max(np.abs(ma[k] - mb[k]) / np.maximum(np.abs(mb[k]), 1e-12))) for k in mb)
+    return gm, abs(fa - fb) / max(abs(fb), 1e-12)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _sharded_vs_dense(gp, mesh, params):
+    """(b)'s readings at ``params``: ``sharded_gram_mll``'s value and
+    gradient at f32 and f64, and the dense ``mll`` (``map_neg_logp``'s data
+    term) at f32 and f64."""
+    from gumbi_tpu_torch.ops import mll as dense_mll
+    from gumbi_tpu_torch.parallel import sharded_gram_mll
+
+    def vg(fn, dt):
+        p = {k: v.to(dt).detach().requires_grad_(True) for k, v in params.items()}
+        val = fn(p, gp._xc.to(dt), gp._yz.to(dt))
+        grads = torch.autograd.grad(val, list(p.values()))
+        return float(val.detach()), [g.detach().double().cpu().numpy() for g in grads]
+
+    shard = lambda p, x, y: sharded_gram_mll(mesh, gp._spec, p, x, gp._xk, y)  # noqa: E731
+    dense = lambda p, x, y: dense_mll(gp._spec, p, x, gp._xk, y)  # noqa: E731
+    _sync(gp._device)
+    t0 = time.perf_counter()
+    s32 = vg(shard, torch.float32)
+    _sync(gp._device)
+    s32_s = time.perf_counter() - t0
+    d32, s64, d64 = vg(dense, torch.float32), vg(shard, torch.float64), vg(dense, torch.float64)
+
+    def gap(a, b):
+        return max(float(np.abs(x - y).max()) for x, y in zip(a[1], b[1]))
+
+    scale = max(float(np.abs(g).max()) for g in d64[1])
+    return dict(s32=s32[0], s64=s64[0], d32=d32[0], d64=d64[0], s32_s=s32_s, grad_scale=scale,
+                grad_rel=gap(s32, d32) / scale, grad_gap64=gap(s32, d64), dense_gap64=gap(d32, d64),
+                shard64_rel=gap(s64, d64) / scale)
+
+
+MESH_TWO_RANK_N = 4096  # (f): bench_dense50k's problem cut to this many rows
+MESH_TWO_RANK_TIMEOUT = 300
+
+
+def _grad_errors(grads, g64):
+    """Largest entry of each gradient's gap from the f64 one."""
+    return max(float(np.abs(np.asarray(grads[k], dtype=np.float64) - g64[k]).max()) for k in g64)
+
+
+def _dense_mll_grads(spec, params, X, y, dtype, device):
+    """The dense ``mll``'s value and gradient at ``params`` (numpy), at ``dtype``."""
+    from gumbi_tpu_torch.ops import mll as dense_mll
+
+    p = {k: torch.as_tensor(v, dtype=dtype, device=device).requires_grad_(True) for k, v in params.items()}
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    val = dense_mll(spec, p, t(X), torch.zeros((len(y), 0), dtype=torch.long, device=device), t(y))
+    grads = torch.autograd.grad(val, list(p.values()))
+    return float(val.detach()), {k: g.detach().double().cpu().numpy() for k, g in zip(p, grads)}
+
+
+def phase21_two_ranks(device="cuda", dtype=torch.float32, small=False):
+    """(f): a world of two gloo ranks on one device (``tools/mesh_jobs``):
+    phase 15 (a)'s table fit with ``find_MAP(mesh=, n_restarts=2)`` on a
+    (1, 2) mesh, one restart a rank; ``sharded_gram_mll``'s value and
+    gradient at N = 4,096 rows of bench_dense50k's problem (the prior's
+    start); and ``blocked_cholesky``/``dist_quad_and_logdet`` at f64 on a
+    96×96 SPD matrix. Each beside the one-rank result in this process: the
+    single-device fit with the same two restarts, the dense ``mll`` at f32
+    and f64, and numpy."""
+    from gumbi_tpu_torch.tools.mesh_jobs import launch
+
+    table = bench_table(64 if small else N_LOCS)
+    n = 256 if small else MESH_TWO_RANK_N
+    spec, X, y, la, lb, _ = make_dense_problem(n, np.float64)
+    u0 = initial_params(spec, la, lb, n_restarts=1, seed=0, dtype=torch.float64, device="cpu")
+    params = {k: v.numpy() for k, v in constrain({k: v[0] for k, v in u0.items()}).items()}
+    rng = np.random.default_rng(11)
+    A = rng.standard_normal((96, 96))
+    K, yk = A @ A.T / 96 + np.eye(96), rng.standard_normal(96)
+    find_kw = dict(n_restarts=2, maxiter=20) if small else dict(n_restarts=2)
+    jobs = [("kronecker", "model", dict(mesh="1x2", cls="gp", columns=table.columns, outputs=MODEL_OUTPUTS,
+                                        fit_kw=dict(continuous_dims=MODEL_DIMS), find_kw=find_kw, points=None)),
+            ("mll", "gram_mll", dict(mesh="1x2", spec=spec, params=params, xc=X, xk=np.zeros((n, 0), np.int64),
+                                     y=y, dtype=str(dtype).removeprefix("torch."))),
+            ("quad_logdet", "quad_logdet", dict(mesh="1x2", K=K, y=yk, g_quad=0.7, g_logdet=1.3))]
+    t0 = time.perf_counter()
+    res = launch(jobs, world=2, meshes={"1x2": 1}, device_type=torch.device(device).type, backend="gloo",
+                 timeout=MESH_TWO_RANK_TIMEOUT)
+    launch_s = time.perf_counter() - t0
+    out = dict(launch_s=launch_s, n=n, errors={k: [r[1] for r in v if r[0] != "ok"] for k, v in res.items()})
+    if any(out["errors"].values()):
+        return out
+    gp1 = ArrayTableGP(table, outputs=MODEL_OUTPUTS, dtype=dtype, device=device)
+    gp1.fit(outputs=MODEL_OUTPUTS, continuous_dims=MODEL_DIMS, MAP_kwargs=find_kw)
+    v32, g32 = _dense_mll_grads(spec, params, X, y, dtype, device)
+    _, g64 = _dense_mll_grads(spec, params, X, y, torch.float64, device)
+    ranks = [r[1] for r in res["kronecker"]]
+    m, q = res["mll"][0][1], res["quad_logdet"][0][1]
+    Kinv = np.linalg.inv(K)
+    alpha = Kinv @ yk
+    exact = dict(L=np.linalg.cholesky(K), quad=yk @ alpha, logdet=np.linalg.slogdet(K)[1],
+                 gK=1.3 * Kinv - 0.7 * np.outer(alpha, alpha), gy=1.4 * alpha)
+    out.update(
+        same=all(_same_tree(r[1], res[k][0][1]) for k in res for r in res[k][1:]),
+        kron_gap=_map_gap((ranks[0]["MAP"], ranks[0]["neg_logp"]),
+                          ({k: np.array(v) for k, v in gp1.MAP.items()}, gp1._neg_logp)),
+        mll_rel=abs(m["value"] - v32) / abs(v32), grad_scale=max(float(np.abs(g).max()) for g in g64.values()),
+        grad_gap64=_grad_errors(m["grads"], g64), dense_gap64=_grad_errors(g32, g64),
+        qld_rel=max(_rel(q[k], exact[k]) for k in exact))
+    return out
+
+
+def _same_tree(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_tree(a[k], b[k]) for k in a)
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def phase21_run(mesh, models, device="cuda", dtype=torch.float32, small=False):
+    """Phase 21's runs on ``mesh``, each with the kernels' launch counts at 0
+    just before it and read just after (the comparisons run after the
+    counts are read): (a) the restart-sharded refit of phase 15 (a)'s
+    Kronecker model, (b) the data-sharded dense fit of bench_dense50k's
+    problem as a one-output table and ``predict(mesh=)`` on the grid, (c)
+    the distributed iterative fit of phase 17's table and ``predict_grid``,
+    (d) phase 19 (a)'s classifier refit on the mesh, (e) phase 18's sparse
+    GP and phase 19 (e)'s sparse classifier refit on the mesh; then (f) two
+    gloo ranks on the device (:func:`phase21_two_ranks`). ``models``: the
+    fitted models of (a), (d) and (e) with the find_MAP keywords they were
+    fitted with. ``small`` takes MESH_SMALL's sizes for (b), (c) and (f).
+    Returns every reading; asserts nothing."""
+    out = {}
+
+    def counted(name, fn):
+        for k in (RbfGram, FusedMatvec, FusedMatvecSym):
+            k.launches = 0
+        with count_rbf_shapes(f"mesh_{name}") as shapes:
+            _peak_reset(device)
+            t0 = time.perf_counter()
+            r = fn()
+            _sync(device)
+            r["seconds"] = time.perf_counter() - t0
+            r["peak_gib"] = _peak_gib(device)
+        r["launches"], r["shapes"] = _counts(), dict(shapes)
+        out[name] = r
+        return r
+
+    def refit(name):
+        gp, map_kw = models[name]
+        s, single, sharded = _refit_on_mesh(gp, mesh, map_kw)
+        return dict(fit_s=s, single=single, sharded=sharded, gap=_map_gap(sharded, single), gp=gp)
+
+    counted("kronecker", lambda: refit("kronecker"))
+
+    def dense():
+        n = MESH_SMALL["dense_n"] if small else DENSE_N
+        _, X, y, _, _, _ = make_dense_problem(n, np.float64)
+        gp, stages, _ = _gp_fit(xy_table(X, y), device, dtype, {}, dict(MESH_DENSE_MAP, mesh=mesh, shard_data=True))
+        no_cache = gp._cache is None
+        gp.prepare_grid(resolution=MESH_SMALL["grid"] if small else GRID)
+        arr = np.asarray(_grid_tall(gp, gp.grid_points))
+        t0 = time.perf_counter()
+        m_mesh, v_mesh = gp.predict(arr, mesh=mesh)
+        _sync(device)
+        return dict(gp=gp, stages=stages, no_cache=no_cache, predict_s=time.perf_counter() - t0, arr=arr,
+                    mesh_grid=(m_mesh, v_mesh), n=n)
+
+    b = counted("data_sharded", dense)
+    gp = b["gp"]
+    m, v = gp.predict(b.pop("arr"))
+    m_mesh, v_mesh = b.pop("mesh_grid")
+    b.update(grid_rel=(_rel(m_mesh, m), _rel(v_mesh, v)),
+             finite=bool(np.isfinite(m_mesh).all() and np.isfinite(v_mesh).all()))
+    u0 = initial_params(gp._spec, gp._ls_alpha, gp._ls_beta, n_restarts=1, seed=gp.seed, dtype=dtype, device=device)
+    b["readings"] = {"fit": _sharded_vs_dense(gp, mesh, gp._params),
+                     "start": _sharded_vs_dense(gp, mesh, constrain({k: v[0] for k, v in u0.items()}))}
+
+    def iterative():
+        n = MESH_SMALL["iter_n"] if small else ITER_N
+        cfg = MESH_SMALL["iter_cfg"] if small else gp_iter_config()
+        X, yv = make_iter_data(n)
+        gp, stages, _ = _gp_fit(xy_table(X, yv), device, dtype, {},
+                                dict(MESH_ITER_MAP, engine="iterative", iter_config=cfg, seed=0, mesh=mesh))
+        gp.prepare_grid(resolution=MESH_SMALL["grid"] if small else GRID)
+        t0 = time.perf_counter()
+        y = gp.predict_grid(with_noise=False)
+        _sync(device)
+        return dict(gp=gp, stages=stages, y=y, predict_s=time.perf_counter() - t0, n=n, cfg=cfg)
+
+    c = counted("iterative", iterative)
+    c["evaluations"] = int(c["gp"]._fit_aux["evals"].sum())
+    gp, cfg = c["gp"], c["cfg"]
+    st = gp._iter_state
+    pn, pk = draw_probes(0, int(st["xc"].shape[0]), cfg, dtype=dtype, device=device)
+    la, lb = (torch.as_tensor(a, dtype=dtype, device=device) for a in (gp._ls_alpha, gp._ls_beta))
+    for key, cfg_s in (("single", dataclasses.replace(cfg, sym_matvec=False)), ("single_sym", cfg)):
+        # the same engine on one device: with the general kernel (the mesh
+        # path's) and with the symmetric one (the single-device default)
+        with torch.no_grad():
+            c[key] = float(iter_map_neg_logp(gp._spec, unconstrain(gp._params), st["xc"], st["xk"], st["yz"], la, lb,
+                                             pn, pk, cfg_s, mask=st["mask"]))
+    c["obj_rel"] = abs(gp._neg_logp - c["single"]) / abs(c["single"])
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    c["anchor"] = anchor_gp_iterative(gp, n_points=64 if small else ANCHOR_POINTS)
+    gp._iter_cache = None  # the 50k LOVE factor
+    counted("gpc", lambda: refit("gpc"))
+    counted("sparse", lambda: refit("sparse"))
+    counted("gpc_sparse", lambda: refit("gpc_sparse"))
+    out["two_ranks"] = phase21_two_ranks(device, dtype, small)
+    return out
+
+
+def phase21_models(gp_kron, gp_sparse, gpc_dense, gpc_sparse):
+    """Phase 21's ``models``: phases 15 (a), 18, 19 (a) and 19 (e)'s fitted
+    models with the find_MAP keywords they were fitted with."""
+    return {"kronecker": (gp_kron, MODEL_MAP_KWARGS), "sparse": (gp_sparse, GP_SPARSE_MAP),
+            "gpc": (gpc_dense, GPC_CARD["dense_map"]), "gpc_sparse": (gpc_sparse, GPC_CARD["sparse_map"])}
+
+
+def phase21_small_models(device="cpu", dtype=torch.float64):
+    """Small fitted stand-ins of (a), (d) and (e)'s models, for the CPU
+    rehearsal of phase 21 (``tests/test_torch_parallel.py`` holds the
+    branches against the reference)."""
+    kw = dict(n_restarts=2, maxiter=20)
+    ra = run_model_fit(bench_table(64), device, dtype, map_kwargs=kw, grid=8)
+    table, _ = fitc_table(512)
+    sp, _, _ = _gp_fit(table, device, dtype, dict(sparse=True, n_u=16), kw)
+    gt, _ = gpc_table(256, seed=1)
+    gpc, _ = _gpc_fit(gt, device, dtype, {}, kw)
+    gpc_s, _ = _gpc_fit(gt, device, dtype, dict(sparse=True, n_u=16), kw)
+    return {"kronecker": (ra["gp"], kw), "sparse": (sp, kw), "gpc": (gpc, kw), "gpc_sparse": (gpc_s, kw)}
+
+
+def phase21_mesh(models):
+    """``mesh=`` through GP and GPC on a one-rank NCCL mesh
+    (``parallel.make_mesh()``, f32), logged and checked; the process group
+    is destroyed at the end. ``models`` as in :func:`phase21_run`
+    (:func:`phase21_models`)."""
+    import torch.distributed as dist
+
+    from gumbi_tpu_torch.parallel import make_mesh
+
+    t_start = time.perf_counter()
+    mesh = make_mesh()
+    log(f"[mesh] make_mesh(): {dist.get_backend()} group of {dist.get_world_size()}, mesh "
+        f"{tuple(mesh.mesh_dim_names)} {tuple(mesh.shape)}")
+    try:
+        out = phase21_run(mesh, models)
+    finally:
+        dist.destroy_process_group()
+    seconds = time.perf_counter() - t_start
+    f = out.pop("two_ranks")
+    for name, r in out.items():
+        log(f"[mesh] ({name}) {r['seconds']:.3f} s | peak {r['peak_gib'] or 0:.2f} GiB | launches {r['launches']} | "
+            f"rbf_gram by shape {r['shapes']}")
+    for name in ("kronecker", "gpc", "sparse", "gpc_sparse"):
+        r = out[name]
+        log(f"[mesh] ({name}) find_MAP(mesh=) {r['fit_s']:.3f} s | neg_logp {r['sharded'][1]:.6f} against the "
+            f"single-device fit's {r['single'][1]:.6f} | MAP rel gap {r['gap'][0]:.2e}, value {r['gap'][1]:.2e} "
+            f"(rtol {MESH_FIT_RTOL})")
+    b = out["data_sharded"]
+    log(f"[mesh] (data_sharded) N={b['n']}: GP.fit phases " + " | ".join(f"{k} {v:.3f} s" for k, v in b["stages"].items())
+        + f" | iterations {b['gp']._fit_aux['iters'].tolist()}, evaluations {b['gp']._fit_aux['evals'].tolist()} | "
+        f"predict(mesh=) {b['predict_s']:.3f} s, grid mean rel "
+        f"{b['grid_rel'][0]:.2e} var rel {b['grid_rel'][1]:.2e} against predict()")
+    for at, rd in b["readings"].items():
+        log(f"[mesh] (data_sharded) sharded_gram_mll at the {at}: f32 {rd['s32']:.4f} ({rd['s32_s']:.3f} s "
+            f"value+grad) | f64 {rd['s64']:.4f} | |diff| {abs(rd['s32'] - rd['s64']) / b['n']:.2e} nats/pt (tol "
+            f"{BASIN_TOL}) | dense mll f32 {rd['d32']:.4f}: rel {abs(rd['s32'] - rd['d32']) / abs(rd['d32']):.2e} | "
+            f"gradients (largest f64 entry {rd['grad_scale']:.3e}): sharded − dense f32 {rd['grad_rel']:.2e} of it, "
+            f"against f64 sharded {rd['grad_gap64']:.3e} dense {rd['dense_gap64']:.3e}, f64 "
+            f"sharded − dense {rd['shard64_rel']:.2e} (f32 against f64: sharded at most {MESH_GRAD_F64_RATIO}× dense)")
+    c = out["iterative"]
+    aux, a = c["gp"]._fit_aux, c["anchor"]
+    log(f"[mesh] (iterative) N={c['n']}: GP.fit phases " + " | ".join(f"{k} {v:.3f} s" for k, v in c["stages"].items())
+        + f" | iterations {aux['iters'].tolist()}, evaluations {aux['evals'].tolist()} | objective at the fit "
+        f"{c['gp']._neg_logp:.4f} against the single-device iter_map_neg_logp at its parameters and probes "
+        f"{c['single']:.4f} (general kernel, the mesh path's): rel {c['obj_rel']:.2e} (tol {ANCHOR_TOL}); with the "
+        f"symmetric kernel {c['single_sym']:.4f} | posterior solve {'exhausted' if aux['cache_exhausted'] else 'CG'}, "
+        f"{int(aux['cache_cg_iters'])} CG iterations | predict_grid {c['predict_s']:.3f} s | anchor (f64 Cholesky): "
+        f"objective rel {a['rel']:.2e}, grid max|mean - exact| {a['dmean']:.3e} (tol {GRID_TOL}), LOVE median "
+        f"{a['love_med']:.4f}")
+    if any(f["errors"].values()):
+        log(f"[mesh] (two_ranks) two gloo ranks on one card failed ({f['launch_s']:.1f} s): {f['errors']}")
+    else:
+        log(f"[mesh] (two_ranks) two gloo ranks on one card, {f['launch_s']:.1f} s with the processes' start: "
+            f"ranks' results equal {f['same']} | phase 15 (a)'s table, 2 restarts on a (1, 2) mesh: MAP rel gap to "
+            f"the one-process fit {f['kron_gap'][0]:.2e}, value {f['kron_gap'][1]:.2e} | sharded_gram_mll at "
+            f"N={f['n']}: value rel to the dense mll {f['mll_rel']:.2e}; gradient (largest f64 entry "
+            f"{f['grad_scale']:.3e}) against f64 {f['grad_gap64']:.3e}, the dense f32 one's {f['dense_gap64']:.3e} "
+            f"| blocked_cholesky and dist_quad_and_logdet at f64 against numpy: rel {f['qld_rel']:.2e}")
+    log(f"[mesh] phase 21 took {seconds:.1f} s")
+    for name in ("kronecker", "gpc", "sparse", "gpc_sparse"):
+        gm, gf = out[name]["gap"]
+        assert gm <= MESH_FIT_RTOL and gf <= MESH_FIT_RTOL, f"mesh ({name}): MAP off the single-device fit: {gm}, {gf}"
+    assert b["no_cache"] and b["finite"], "mesh (data_sharded): an eager cache or a non-finite grid"
+    for at, rd in b["readings"].items():
+        assert abs(rd["s32"] - rd["s64"]) / b["n"] <= BASIN_TOL, f"mesh (data_sharded): f32 off f64 at the {at}"
+        assert abs(rd["s32"] - rd["d32"]) / abs(rd["d32"]) <= MESH_REL_TOL, \
+            f"mesh (data_sharded): sharded off the dense mll at the {at}: {rd['s32']} {rd['d32']}"
+        assert rd["shard64_rel"] <= 1e-9, f"mesh (data_sharded): f64 gradients differ at the {at}: {rd}"
+        assert rd["grad_gap64"] <= MESH_GRAD_F64_RATIO * rd["dense_gap64"] + MESH_REL_TOL * rd["grad_scale"], \
+            f"mesh (data_sharded): f32 gradient further from f64 than the dense one's at the {at}: {rd}"
+    assert max(b["grid_rel"]) <= MESH_REL_TOL, f"mesh (data_sharded): predict(mesh=) off predict(): {b['grid_rel']}"
+    assert c["obj_rel"] <= ANCHOR_TOL, f"mesh (iterative): objective off the single-device one: {c['obj_rel']}"
+    assert a["dmean"] <= GRID_TOL, f"mesh (iterative): grid means off the exact posterior: {a['dmean']}"
+    y = c["y"]
+    assert y.shape == (GRID, GRID) and np.isfinite(y.μ).all() and np.isfinite(y.σ2).all()
+    assert c["launches"]["fused_stationary_matvec"] > 0, f"mesh (iterative): no general matvec launch: {c['launches']}"
+    for name, r in out.items():
+        assert r["launches"]["rbf_gram"] > 0 and sum(r["shapes"].values()) == r["launches"]["rbf_gram"], \
+            f"mesh ({name}): rbf_gram launches {r['launches']}, {r['shapes']}"
+    assert not any(f["errors"].values()), f"mesh (two_ranks): {f['errors']}"
+    assert f["same"], "mesh (two_ranks): the ranks' results differ"
+    assert max(f["kron_gap"]) <= MESH_REL_TOL and f["mll_rel"] <= MESH_REL_TOL and f["qld_rel"] <= 1e-10, \
+        f"mesh (two_ranks): off the one-rank results: {f}"
+    assert f["grad_gap64"] <= MESH_GRAD_F64_RATIO * f["dense_gap64"] + MESH_REL_TOL * f["grad_scale"], \
+        f"mesh (two_ranks): f32 gradient further from f64 than the dense one's: {f}"
+    launches = {k: sum(r["launches"][k] for r in out.values()) for k in _counts()}
+    del out, b, c
     torch.cuda.empty_cache()
     return launches, seconds
 
@@ -3622,10 +4147,12 @@ def main():
     del lap_p, lap_r
     gp_launches, _, gp_a = phase15_model_layer()
     surface_launches, _ = phase16_model_surface(gp_a, chees_ls)
-    del gp_a
     gp_iter_launches, _ = phase17_gp_iterative(ops_map_ls)
-    gp_sparse_launches, _ = phase18_gp_sparse()
-    gpc_launches, _ = phase19_gpc(laplace_accuracy, fitc_laplace_accuracy)
+    gp_sparse_launches, _, gp_sparse = phase18_gp_sparse()
+    gpc_launches, _, gpc_dense, gpc_sparse = phase19_gpc(laplace_accuracy, fitc_laplace_accuracy)
+    het_launches, _ = phase20_het()
+    mesh_launches, _ = phase21_mesh(phase21_models(gp_a, gp_sparse, gpc_dense, gpc_sparse))
+    del gp_a, gp_sparse, gpc_dense, gpc_sparse
     sms, mhz, peak = _fp32_peak_of_card()
     log(f"[card] {sms} SMs at max {mhz:.0f} MHz: FP32 FMA peak {peak / 1e12:.1f} TFLOP/s "
         f"(bounds use the data sheet's {FP32_PEAK / 1e12:.0f})")
@@ -3642,14 +4169,16 @@ def main():
          "launches": kron_launches["total"] + iter_launches["rbf_gram"] + dense_launches["rbf_gram"]
          + fitc_launches + fitc_laplace_launches + laplace_launches + sum(r["launches"] for r in bo_runs)
          + sampler_runs["chees"][0] + sampler_runs["hmc"][0] + ess_launches + gp_launches + surface_launches
-         + gp_iter_launches["rbf_gram"] + gp_sparse_launches + gpc_launches,
+         + gp_iter_launches["rbf_gram"] + gp_sparse_launches + gpc_launches + het_launches
+         + mesh_launches["rbf_gram"],
          "launches_by_path": {"kronecker": kron_launches["total"], "iterative": iter_launches["rbf_gram"],
                               "dense": dense_launches["rbf_gram"], "fitc": fitc_launches,
                               "fitc_laplace": fitc_laplace_launches, "laplace": laplace_launches,
                               "bo": sum(r["launches"] for r in bo_runs), "chees": sampler_runs["chees"][0],
                               "hmc": sampler_runs["hmc"][0], "ess": ess_launches, "gp_model": gp_launches,
                               "gp_surface": surface_launches, "gp_iterative": gp_iter_launches["rbf_gram"],
-                              "gp_sparse": gp_sparse_launches, "gpc": gpc_launches},
+                              "gp_sparse": gp_sparse_launches, "gpc": gpc_launches, "het": het_launches,
+                              "mesh": mesh_launches["rbf_gram"]},
          "launches_by_path_and_shape": {path: dict(c) for path, c in RBF_SHAPES.items()},
          "max_abs_err": rbf_max_abs, "ms": k_ms, "plain_ms": p_ms, "bound_ms": rb, "bound_fp32_ms": rb,
          "bound_by": rby,
@@ -3660,9 +4189,11 @@ def main():
          "bound_ms_by_shape": {_shape_key(n, m): _rbf_bound(n, m, 2)[0] for (n, m) in rbf_times}},
         {"name": "fused_stationary_matvec", "route": "cuda", "source": "gumbi_tpu_torch/csrc/fused_matvec.cu",
          "replaces": "gumbi_tpu/ops/pallas_kernels.py:309",
-         "launches": iter_launches["fused_stationary_matvec"] + gp_iter_launches["fused_stationary_matvec"],
+         "launches": iter_launches["fused_stationary_matvec"] + gp_iter_launches["fused_stationary_matvec"]
+         + mesh_launches["fused_stationary_matvec"],
          "launches_by_path": {"iterative": iter_launches["fused_stationary_matvec"],
-                              "gp_iterative": gp_iter_launches["fused_stationary_matvec"]},
+                              "gp_iterative": gp_iter_launches["fused_stationary_matvec"],
+                              "mesh": mesh_launches["fused_stationary_matvec"]},
          "max_abs_err": fused_errs["general"],
          "ms": gk, "plain_ms": gp, "bound_ms": gb, "bound_fp32_ms": gb32, "bound_by": gby, "library_ms": None,
          "shape": "10000x50000 d=2 r=513", "ms_r65": fused_times[("general", 50_000, 50_000, 65)][0],
@@ -3672,9 +4203,11 @@ def main():
          "ms_50000x50000_r1": fused_times[("general", 50_000, 50_000, 1)][0]},
         {"name": "fused_stationary_matvec_sym", "route": "cuda", "source": "gumbi_tpu_torch/csrc/fused_matvec.cu",
          "replaces": "gumbi_tpu/ops/pallas_kernels.py:471",
-         "launches": iter_launches["fused_stationary_matvec_sym"] + gp_iter_launches["fused_stationary_matvec_sym"],
+         "launches": iter_launches["fused_stationary_matvec_sym"] + gp_iter_launches["fused_stationary_matvec_sym"]
+         + mesh_launches["fused_stationary_matvec_sym"],
          "launches_by_path": {"iterative": iter_launches["fused_stationary_matvec_sym"],
-                              "gp_iterative": gp_iter_launches["fused_stationary_matvec_sym"]},
+                              "gp_iterative": gp_iter_launches["fused_stationary_matvec_sym"],
+                              "mesh": mesh_launches["fused_stationary_matvec_sym"]},
          "max_abs_err": fused_errs["sym"],
          "ms": sk, "plain_ms": sp, "bound_ms": sb, "bound_fp32_ms": sb32, "bound_by": sby, "library_ms": None,
          "shape": "50000x50000 d=2 r=65", "ms_r64": sym_times[64], "ms_r1": sym_times[1]},

@@ -27,9 +27,12 @@ kernel (``ops/kernels.py``). Random draws come from ``torch.Generator`` objects
 seeded as the reference seeds its JAX keys: the same distributions, not the
 same numbers (``stream=`` replays any other stream).
 
-Paths of later steps raise ``NotImplementedError`` naming the step of the
-roadmap's first queue that ports them: ``heteroskedastic_inputs=True``
-(15, in ``build_model`` and ``load``), ``mesh=``/``shard_data=`` (19).
+``heteroskedastic_inputs=True`` adds a noise GP over the log squared
+residuals (:meth:`_find_MAP_het`). ``mesh=`` (a ``DeviceMesh`` from
+:func:`gumbi_tpu_torch.parallel.make_mesh`) shards ``find_MAP``'s restarts,
+with ``shard_data=True`` the dense Gram and its Cholesky, and with
+``engine='iterative'`` the matvec, over ``torch.distributed`` ranks; and
+``predict``'s points (:mod:`gumbi_tpu_torch.parallel`).
 """
 
 from __future__ import annotations
@@ -89,7 +92,7 @@ from ..ops import (
     unconstrain,
 )
 from ..ops.acquisition import make_indep_sample_fn, make_kron_sample_fn
-from ..ops.kernels import CONTINUOUS_KERNELS
+from ..ops.kernels import CONTINUOUS_KERNELS, noise_diag
 from ..utils import assert_in
 from ..utils.profiling import phase
 from ..utils.torch_utils import TorchStream, default_model_dtype, resolve_device
@@ -102,10 +105,6 @@ __all__ = ["GP"]
 # CG value+grad at N = 50,000 would spend ~33 s in the symmetric matvec
 # alone on an H100 (PERF.md §6), so the ceiling stays, as a constant.
 POLISH_CG_CAP = 2048
-
-
-def _later(what, step):
-    return NotImplementedError(f"{what} is not ported yet: it comes with step {step} of ROADMAP.md's queue 1")
 
 
 def _numpy(v):
@@ -173,6 +172,12 @@ class GP(Regressor):
         # Iterative-engine state; populated by _find_MAP_iterative
         self._iter_cache = None
         self._iter_state = None
+        # Heteroskedastic-input (noise GP) state; populated by _find_MAP_het
+        self._noise_params = None
+        self._noise_cache = None
+        self._noise_mult = None
+        self._noise_stats = None
+        self._noise_zt = None
         self._dtype = default_model_dtype(self._device) if dtype is None else _torch_dtype(dtype)
 
         self.model_specs = {
@@ -382,9 +387,32 @@ class GP(Regressor):
 
         ``sparse``: the FITC model on ``n_u`` inducing points, placed by
         k-means (host numpy, the reference's draws) over the real rows.
+
+        ``heteroskedastic_inputs``: input-dependent observation noise by the
+        most-likely heteroskedastic GP (Kersting et al. 2007): a second GP
+        fit to the log expected squared residuals gives a per-row relative
+        noise variance, and prediction adds the location-dependent noise at
+        new points (:meth:`_find_MAP_het`). Dense Hadamard structure only;
+        tune with ``MAP_kwargs=dict(het_iters=k)``.
         """
         if heteroskedastic_inputs:
-            raise _later("heteroskedastic_inputs=True", 15)
+            # The per-row noise diagonal breaks the Kronecker batching, FITC's
+            # diagonal correction absorbs input-dependent slack already, the
+            # Independent split would need one noise GP per output, and the
+            # noise-GP targets are per observed row (no bucket padding).
+            if sparse:
+                raise NotImplementedError("heteroskedastic_inputs does not compose with sparse FITC.")
+            if bucket:
+                raise NotImplementedError(
+                    "heteroskedastic_inputs does not compose with bucket padding "
+                    "(the noise-GP targets are per observed row)."
+                )
+            if multitask_kernel in ("Kronecker", "Independent"):
+                raise NotImplementedError(
+                    "heteroskedastic_inputs requires the dense Hadamard structure "
+                    "(per-row noise breaks the Kronecker/Independent batching)."
+                )
+            multitask_kernel = "Hadamard"
         assert_in("Continuous kernel", continuous_kernel, CONTINUOUS_KERNELS)
 
         X, y = self.get_shaped_data("mean")
@@ -428,6 +456,12 @@ class GP(Regressor):
         # Reset per-build padding state up front: the Independent branch
         # returns before the bucket block below.
         self._mask = None
+        # A stale noise GP from a previous build would reshape the predictive noise.
+        self._noise_params = None
+        self._noise_cache = None
+        self._noise_mult = None
+        self._noise_stats = None
+        self._noise_zt = None
 
         self._build_cat_maps()
         linear_idx = tuple(self.continuous_dims.index(d) for d in self.linear_dims)
@@ -656,6 +690,19 @@ class GP(Regressor):
         :class:`~gumbi_tpu_torch.ops.IterConfig`; the default picks a block
         size for large N. ``coarse_n`` and ``polish_maxiter`` (keywords)
         steer the staged fit of :meth:`_find_MAP_iterative`.
+
+        ``mesh`` (a ('restart', 'data') ``DeviceMesh``,
+        :func:`gumbi_tpu_torch.parallel.make_mesh`) shards the fit over
+        ``torch.distributed`` ranks, every rank calling ``find_MAP`` alike:
+        the restarts over the whole mesh for every structure (sparse,
+        Kronecker, Independent output by output, dense), or with
+        ``shard_data=True`` (dense Hadamard only) the N axis itself: Gram
+        assembly and the blocked Cholesky over 'data', O(N²/P) memory a rank
+        (:mod:`gumbi_tpu_torch.parallel.blocked`), and no eager posterior
+        cache. With ``engine='iterative'`` the matvec's row blocks shard
+        over 'data' (:mod:`gumbi_tpu_torch.parallel.iterative`), unstaged.
+        A heteroskedastic-input fit takes ``het_iters`` (default 2) from the
+        keywords and runs on one device.
         """
         assert self._spec is not None, "Call build_model first"
         seed = self.seed if seed is None else seed
@@ -664,8 +711,6 @@ class GP(Regressor):
 
         if engine not in ("cholesky", "iterative"):
             raise ValueError("engine must be 'cholesky' or 'iterative'")
-        if mesh is not None or shard_data:
-            raise _later("mesh= and shard_data=", 19)
         if engine == "iterative":
             if self.sparse or self._structure in ("Kronecker", "Independent") or self.heteroskedastic_inputs:
                 raise NotImplementedError(
@@ -673,7 +718,7 @@ class GP(Regressor):
                     "structure (the tall multi-output layout included)."
                 )
             return self._find_MAP_iterative(
-                iter_config, n_restarts=n_restarts, maxiter=maxiter, tol=tol, seed=seed,
+                iter_config, n_restarts=n_restarts, maxiter=maxiter, tol=tol, seed=seed, mesh=mesh,
                 coarse_n=kwargs.pop("coarse_n", None), polish_maxiter=kwargs.pop("polish_maxiter", None),
             )
 
@@ -683,6 +728,20 @@ class GP(Regressor):
         )
         ls_alpha = self._tensor(self._ls_alpha)
         ls_beta = self._tensor(self._ls_beta)
+
+        if self.heteroskedastic_inputs:
+            if mesh is not None:
+                raise NotImplementedError(
+                    "Mesh-sharded fitting is not implemented for heteroskedastic_inputs "
+                    "(the noise-GP stage is a small second fit; run it on one device)."
+                )
+            return self._find_MAP_het(
+                u0s, ls_alpha, ls_beta, n_restarts=n_restarts, maxiter=maxiter, tol=tol, seed=seed,
+                n_iter=int(kwargs.pop("het_iters", 2)),
+            )
+        if mesh is not None:
+            return self._find_MAP_mesh(mesh, shard_data, u0s, ls_alpha, ls_beta, n_restarts=n_restarts,
+                                       maxiter=maxiter, tol=tol, seed=seed)
 
         if self.sparse:
             def objective(uparams):
@@ -732,10 +791,7 @@ class GP(Regressor):
                 self._spec, self._xc, self._xk, self._yz, ls_alpha, ls_beta, u0s,
                 maxiter=maxiter, tol=tol, mask=self._mask,
             )
-        self._params = params
-        self._neg_logp = float(neg_logp)
-        self._fit_aux = _numpy(aux)
-        self.MAP = _numpy(params)
+        self._set_fit(params, neg_logp, aux)
         if not self.sparse and self._structure != "Kronecker":
             with torch.no_grad():
                 self._cache = posterior_cache(
@@ -743,7 +799,159 @@ class GP(Regressor):
                 )
         return self.MAP
 
-    def _find_MAP_iterative(self, iter_config, *, n_restarts, maxiter, tol, seed, coarse_n=None,
+    def _set_fit(self, params, neg_logp, aux):
+        """Store a fit's parameters, value and diagnostics; returns the MAP."""
+        self._params = params
+        self._neg_logp = float(neg_logp)
+        self._fit_aux = _numpy(aux)
+        self.MAP = _numpy(params)
+        return self.MAP
+
+    def _find_MAP_mesh(self, mesh, shard_data, u0s, ls_alpha, ls_beta, *, n_restarts, maxiter, tol, seed):
+        """``find_MAP(mesh=)``'s branches, as the reference takes them."""
+        from .. import parallel
+
+        if self.sparse:
+            # The FITC evidence is a pure function of the hyperparameters:
+            # its restart sweep, which dominates sparse fits, spreads over the mesh.
+            params, neg_logp, aux = parallel.sharded_fit_fitc_map(
+                mesh, self._spec, self._xc, self._xk, self._xu_c, self._xu_k, self._yz,
+                ls_alpha, ls_beta, u0s, maxiter=maxiter, tol=tol, mask=self._mask,
+            )
+            self._cache = None
+            return self._set_fit(params, neg_logp, aux)
+        if self._structure == "Kronecker":
+            params, neg_logp, aux = parallel.sharded_fit_kron_map(
+                mesh, self._spec, self._xc_locs, self._Y, ls_alpha, ls_beta, u0s, maxiter=maxiter, tol=tol,
+            )
+            with torch.no_grad():
+                self._kron_cache = kron_cache(self._spec, params, self._xc_locs, self._Y)
+            self._cache = None
+        elif self._structure == "Independent":
+            self._ind_params = []
+            self._ind_caches = []
+            neg_total = 0.0
+            aux = {}
+            for j, (xc_j, xk_j, y_j) in enumerate(self._ind_data):
+                u0s_j = initial_params(
+                    self._spec, self._ls_alpha, self._ls_beta,
+                    n_restarts=n_restarts, seed=seed + j, dtype=self._dtype, device=self._device,
+                )
+                p_j, neg_j, aux_j = parallel.sharded_fit_gp_map(
+                    mesh, self._spec, xc_j, xk_j, y_j, ls_alpha, ls_beta, u0s_j, maxiter=maxiter, tol=tol,
+                )
+                self._ind_params.append(p_j)
+                with torch.no_grad():
+                    self._ind_caches.append(posterior_cache(self._spec, p_j, xc_j, xk_j, y_j))
+                neg_total += float(neg_j)
+                aux[f"output_{j}"] = _numpy(aux_j)
+            self._params = self._ind_params[0]
+            self._neg_logp = neg_total
+            self._fit_aux = aux
+            self.MAP = {out: _numpy(self._ind_params[self._ind_output_index(out)]) for out in self.outputs}
+            self._cache = None
+            return self.MAP
+        elif shard_data:
+            if self._mask is not None:
+                raise NotImplementedError(
+                    "shard_data does not compose with bucket padding (the sharded "
+                    "Gram pads to the mesh extent itself)."
+                )
+            params, neg_logp, aux = parallel.data_sharded_fit_gp_map(
+                mesh, self._spec, self._xc, self._xk, self._yz, ls_alpha, ls_beta, u0s, maxiter=maxiter, tol=tol,
+            )
+            # No eager posterior cache: no rank holds the N×N factorization;
+            # prediction builds it lazily (or shards the points with predict(mesh=)).
+            self._cache = None
+        else:
+            params, neg_logp, aux = parallel.sharded_fit_gp_map(
+                mesh, self._spec, self._xc, self._xk, self._yz, ls_alpha, ls_beta, u0s,
+                maxiter=maxiter, tol=tol, mask=self._mask,
+            )
+            with torch.no_grad():
+                self._cache = posterior_cache(self._spec, params, self._xc, self._xk, self._yz, mask=self._mask)
+        return self._set_fit(params, neg_logp, aux)
+
+    def _noise_spec(self):
+        """The noise GP's spec: the model's kernel and coregion structure
+        with its own homoskedastic white noise."""
+        spec = self._spec
+        return GPSpec(terms=spec.terms, d_cont=spec.d_cont, ard=spec.ard, period=spec.period)
+
+    def _find_MAP_het(self, u0s, ls_alpha, ls_beta, *, n_restarts, maxiter, tol, seed, n_iter=2):
+        """Most-likely heteroskedastic GP fit (Kersting et al. 2007, ICML).
+
+        Alternates (1) a MAP fit of the main GP given a fixed per-row
+        relative noise variance and (2) a noise GP fit to the log expected
+        squared residuals z_i = log((y_i − μ_i)² + var_i), whose posterior
+        mean gives the next round's noise shape exp(l(x) − l̄). The learnable
+        σ² keeps the global noise scale (the shape has mean 1 in log space),
+        so the homoskedastic model is recovered where the noise GP finds no
+        signal. 2·n_iter + 1 fits; z's moments and l̄ are taken in f64 on the
+        host, as the reference takes them.
+        """
+        if n_iter < 1:
+            raise ValueError(
+                "het_iters must be >= 1: zero alternations would leave no "
+                "fitted noise GP (a plain homoskedastic fit is the model "
+                "without heteroskedastic_inputs)."
+            )
+        spec = self._spec
+        xc, xk, y = self._xc, self._xk, self._yz
+        with phase("het_fit_0"):
+            params, neg_logp, aux = fit_gp_map(spec, xc, xk, y, ls_alpha, ls_beta, u0s, maxiter=maxiter, tol=tol)
+        noise_spec = self._noise_spec()
+        noise_mult = None
+        for it in range(n_iter):
+            with torch.no_grad():
+                cache = posterior_cache(spec, params, xc, xk, y, noise_mult=noise_mult)
+                mu, var = predict_diag(spec, params, cache, xc, xk, with_noise=False)
+            # E[(y − f)²] = squared residual + latent posterior variance
+            r2 = _numpy((y - mu) ** 2 + var).astype(np.float64)
+            z = np.log(np.maximum(r2, 1e-12))
+            z_m = float(z.mean())
+            z_s = float(max(z.std(), 1e-3))
+            zt = self._tensor((z - z_m) / z_s)
+            u0s_n = initial_params(
+                noise_spec, self._ls_alpha, self._ls_beta, n_restarts=n_restarts, seed=seed + 7919 + it,
+                dtype=self._dtype, device=self._device,
+            )
+            with phase(f"het_noise_{it + 1}"):
+                nparams, _, _ = fit_gp_map(noise_spec, xc, xk, zt, ls_alpha, ls_beta, u0s_n, maxiter=maxiter, tol=tol)
+            with torch.no_grad():
+                ncache = posterior_cache(noise_spec, nparams, xc, xk, zt)
+                g, _ = predict_diag(noise_spec, nparams, ncache, xc, xk, with_noise=False)
+            log_noise = z_m + z_s * _numpy(g).astype(np.float64)
+            lbar = float(log_noise.mean())
+            noise_mult = self._tensor(np.exp(log_noise - lbar))
+            with phase(f"het_fit_{it + 1}"):
+                params, neg_logp, aux = fit_gp_map(
+                    spec, xc, xk, y, ls_alpha, ls_beta, u0s, maxiter=maxiter, tol=tol, noise_mult=noise_mult,
+                )
+        self._noise_params = nparams
+        self._noise_cache = ncache
+        self._noise_mult = noise_mult
+        self._noise_stats = (z_m, z_s, lbar)
+        self._noise_zt = zt  # saved, so that load() can rebuild the noise cache
+        self._set_fit(params, neg_logp, aux)
+        with torch.no_grad():
+            self._cache = posterior_cache(spec, params, xc, xk, y, noise_mult=noise_mult)
+        return self.MAP
+
+    def _het_noise_mult_at(self, xc_new, xk_new):
+        """Relative noise variance exp(l(x) − l̄) at new points."""
+        with torch.no_grad():
+            g, _ = predict_diag(self._noise_spec(), self._noise_params, self._noise_cache, xc_new, xk_new,
+                                with_noise=False)
+        z_m, z_s, lbar = self._noise_stats
+        return torch.exp(z_m + z_s * g - lbar)
+
+    def _het_noise(self, var, xc, xk):
+        """``var`` plus the heteroskedastic predictive noise: the learnable
+        σ² (output-coregion scaled) times the noise GP's shape."""
+        return var + noise_diag(self._spec, self._params, xk, dtype=var.dtype) * self._het_noise_mult_at(xc, xk)
+
+    def _find_MAP_iterative(self, iter_config, *, n_restarts, maxiter, tol, seed, mesh=None, coarse_n=None,
                             polish_maxiter=None):
         """Dense-Hadamard MAP fit through the mBCG/SLQ engine.
 
@@ -774,6 +982,12 @@ class GP(Regressor):
         iterative fit, the posterior solve's regime, CG iterations, residual
         and Woodbury residual (``cache_exhausted``, ``cache_cg_iters``,
         ``cache_rel_res``, ``cache_woodbury_rel``).
+
+        With a ``mesh`` the matvec's row blocks shard over 'data'
+        (:mod:`gumbi_tpu_torch.parallel.iterative`): the data are padded to a
+        multiple of P·block, the fit is unstaged (restarts in a host loop of
+        L-BFGS, no recovery ladder, as the reference's mesh path), and the
+        posterior cache has the same contents, so prediction is the same.
         """
         n = int(self._xc.shape[0])
         if iter_config is None:
@@ -783,7 +997,11 @@ class GP(Regressor):
         cfg = iter_config
 
         xc, xk, yz, mask = self._xc, self._xk, self._yz, self._mask
-        if cfg.block > 0 and n % cfg.block:
+        if mesh is not None:
+            from ..parallel import pad_for_dist_iter
+
+            xc, xk, yz, mask = pad_for_dist_iter(mesh, cfg, xc, xk, yz, mask)
+        elif cfg.block > 0 and n % cfg.block:
             pad = (-n) % cfg.block
             xc = torch.cat([xc, xc.new_zeros((pad, xc.shape[1]))])
             xk = torch.cat([xk, xk.new_zeros((pad, xk.shape[1]))])
@@ -799,6 +1017,27 @@ class GP(Regressor):
         ls_alpha = self._tensor(self._ls_alpha)
         ls_beta = self._tensor(self._ls_beta)
         pn, pk = draw_probes(seed, int(xc.shape[0]), cfg, dtype=self._dtype, device=self._device)
+
+        if mesh is not None:
+            from ..parallel import dist_iter_fit_gp_map, dist_iter_posterior_cache
+
+            with phase("iter_dist_fit"):
+                params, neg_logp, aux = dist_iter_fit_gp_map(
+                    mesh, spec, cfg, xc, xk, yz, ls_alpha, ls_beta, u0s, pn, pk, mask, maxiter=maxiter, tol=tol,
+                )
+            self._set_fit(params, neg_logp, aux)
+            self._cache = None
+            self._iter_state = {"cfg": cfg, "xc": xc, "xk": xk, "yz": yz, "mask": mask}
+            info = {}
+            with phase("iter_cache"):
+                self._iter_cache = dist_iter_posterior_cache(mesh, spec, cfg, params, xc, xk, yz, mask, info=info)
+                if self._device.type == "cuda":
+                    torch.cuda.synchronize(self._device)
+            self._fit_aux.update(cache_exhausted=np.asarray(info["exhausted"]),
+                                 cache_cg_iters=np.asarray(info["iters"]),
+                                 cache_rel_res=np.asarray(float(info["rel_res"])),
+                                 cache_woodbury_rel=np.asarray(info["woodbury_rel"]))
+            return self.MAP
 
         if coarse_n is not None or n > 16384:
             cn = min(int(coarse_n) if coarse_n else 4096, n)
@@ -850,10 +1089,7 @@ class GP(Regressor):
                 spec, cfg, xc, xk, yz, ls_alpha, ls_beta, pn, pk, u0s, mask=mask, maxiter=maxiter, tol=tol,
             )
         params = constrain(u_best)
-        self._params = params
-        self._neg_logp = float(neg_logp)
-        self._fit_aux = _numpy(aux)
-        self.MAP = _numpy(params)
+        self._set_fit(params, neg_logp, aux)
         self._cache = None  # never build the (N, N) Cholesky state
         self._iter_state = {"cfg": cfg, "xc": xc, "xk": xk, "yz": yz, "mask": mask}
         info = {}
@@ -946,7 +1182,8 @@ class GP(Regressor):
             )
         if self._cache is None:
             with torch.no_grad():
-                cache = posterior_cache(self._spec, self._params, self._xc, self._xk, self._yz, mask=self._mask)
+                cache = posterior_cache(self._spec, self._params, self._xc, self._xk, self._yz, mask=self._mask,
+                                        noise_mult=self._noise_mult)
                 if self._structure == "Kronecker":
                     cache = cache._replace(alpha=self._kron_alpha_tall())
                 self._cache = cache
@@ -972,10 +1209,14 @@ class GP(Regressor):
         continuous term, and a categorical dim name that dim's component.
         Component posteriors solve against the total-kernel factorization and
         carry no observation noise. Returns numpy arrays in the model dtype.
+
+        ``mesh`` (a ``DeviceMesh``) shards the points over its 'data' axis,
+        every rank predicting its block against the replicated cache
+        (``parallel.sharded_predict_diag``); every rank returns all of them.
+        A heteroskedastic-input model adds σ² times the noise GP's shape
+        exp(l(x) − l̄) at the points, with or without a mesh.
         """
         assert self._params is not None, "Model must be fit before predicting"
-        if mesh is not None:
-            raise _later("mesh=", 19)
         with torch.no_grad():
             if additive_level != "total":
                 suffix = self._parse_additive_level(additive_level)
@@ -986,7 +1227,10 @@ class GP(Regressor):
                 return _numpy(mean), _numpy(var)
 
             xc, xk = self._split_X(np.asarray(points_array))
-            if self.sparse:
+            het = self.heteroskedastic_inputs and self._noise_params is not None
+            if mesh is not None:
+                mean, var = self._predict_mesh(mesh, xc, xk, with_noise, het)
+            elif self.sparse:
                 mean, var = fitc_predict(
                     self._spec, self._params, self._xc, self._xk, self._xu_c, self._xu_k, self._yz, xc, xk,
                     with_noise=with_noise, mask=self._mask,
@@ -1007,9 +1251,37 @@ class GP(Regressor):
             else:
                 mean, var = predict_diag_chunked(
                     self._spec, self._params, self._ensure_dense_cache(), xc, xk,
-                    with_noise=with_noise, chunk=8192,
+                    with_noise=with_noise and not het, chunk=8192,
                 )
+                if het and with_noise:
+                    var = self._het_noise(var, xc, xk)
         return _numpy(mean), _numpy(var)
+
+    def _predict_mesh(self, mesh, xc, xk, with_noise, het):
+        """``predict(mesh=)``: the points sharded over the mesh's 'data' axis."""
+        from ..parallel import sharded_predict_diag
+
+        if self.sparse:
+            raise NotImplementedError(
+                "Mesh-sharded prediction supports the dense path (sparse FITC "
+                "prediction is cheap enough for one device)."
+            )
+        if self._structure == "Independent":
+            xk_np = _numpy(xk)
+            means, vars_ = [], []
+            for j, i, end in self._ind_blocks(xk_np):
+                m, v = sharded_predict_diag(
+                    mesh, self._spec, self._ind_params[j], self._ind_caches[j], xc[i:end],
+                    self._reduced_xk(xk_np[i:end]), with_noise=with_noise,
+                )
+                means.append(m)
+                vars_.append(v)
+            return torch.cat(means), torch.cat(vars_)
+        mean, var = sharded_predict_diag(mesh, self._spec, self._params, self._ensure_dense_cache(), xc, xk,
+                                         with_noise=with_noise and not het)
+        if het and with_noise:
+            var = self._het_noise(var, xc, xk)
+        return mean, var
 
     def _ind_blocks(self, xk_np):
         """(output index, start, end) of each contiguous run of one output's
@@ -1176,8 +1448,11 @@ class GP(Regressor):
         ls_beta = self._tensor(self._ls_beta)
 
         def logp(uparams):
+            # A heteroskedastic-input model's hyperparameter posterior is
+            # conditional on the fitted noise shape (the noise GP stays at its MAP).
             return -map_neg_logp_chains(
-                self._spec, uparams, self._xc, self._xk, self._yz, ls_alpha, ls_beta, mask=self._mask
+                self._spec, uparams, self._xc, self._xk, self._yz, ls_alpha, ls_beta, mask=self._mask,
+                noise_mult=self._noise_mult,
             )
 
         if self._params is not None:
@@ -1305,7 +1580,9 @@ class GP(Regressor):
                     if self.sparse:
                         rows.append(_numpy(fitc_draws(p, stream.fold_in(i), 1))[0])
                         continue
-                    cache_i = posterior_cache(self._spec, p, self._xc, self._xk, self._yz, mask=self._mask)
+                    # conditioned on the fitted noise shape, as sample()'s trace was
+                    cache_i = posterior_cache(self._spec, p, self._xc, self._xk, self._yz, mask=self._mask,
+                                              noise_mult=self._noise_mult)
                     s = draw_samples(
                         self._spec, p, cache_i, xc, xk, n_samples=1, with_noise=with_noise, level=level,
                         eps=eps(stream.fold_in(i), xc.shape[0], 1),
@@ -1716,6 +1993,13 @@ class GP(Regressor):
                 arrays.update({f"ind{j}::{k}": _numpy(v) for k, v in p.items()})
         if self._mask is not None:
             arrays["mask"] = _numpy(self._mask)
+        if self._noise_params is not None:
+            # Heteroskedastic-input state: the noise GP's MAP, its standardized
+            # log-residual targets (the noise cache is rebuilt from them) and z's stats.
+            arrays.update({f"noise::{k}": _numpy(v) for k, v in self._noise_params.items()})
+            arrays["noise_zt"] = _numpy(self._noise_zt)
+            arrays["noise_mult"] = _numpy(self._noise_mult)
+            arrays["noise_stats"] = np.asarray(self._noise_stats, dtype=np.float64)
         np.savez(path, __meta__=json.dumps(meta, default=str), **arrays)
 
     @classmethod
@@ -1729,8 +2013,6 @@ class GP(Regressor):
         with np.load(path, allow_pickle=False) as z:
             meta = json.loads(str(z["__meta__"]))
             arrays = {k: z[k] for k in z.files if k != "__meta__"}
-        if any(k.startswith("noise") for k in arrays):
-            raise _later("loading a heteroskedastic-input model", 15)
         spec = spec_from_reference(meta["spec"])
 
         gp = cls(dataset, outputs=meta["outputs"], seed=meta["seed"], device=device)
@@ -1795,6 +2077,14 @@ class GP(Regressor):
                 gp._params = gp._ind_params[0]
                 gp.MAP = {out: _numpy(gp._ind_params[gp._ind_output_index(out)]) for out in gp.outputs}
             return gp
+        gp.heteroskedastic_inputs = bool((gp.model_specs or {}).get("heteroskedastic_inputs", False))
+        if "noise_zt" in arrays:
+            gp._noise_params = params_with("noise::")
+            gp._noise_zt = gp._tensor(arrays["noise_zt"])
+            gp._noise_mult = gp._tensor(arrays["noise_mult"])
+            gp._noise_stats = tuple(float(v) for v in arrays["noise_stats"])
+            with torch.no_grad():
+                gp._noise_cache = posterior_cache(gp._noise_spec(), gp._noise_params, gp._xc, gp._xk, gp._noise_zt)
 
         if params:
             gp._params = params
@@ -1809,6 +2099,6 @@ class GP(Regressor):
                     # state and predicts through the dense cache, as the
                     # reference's does
                     gp._cache = posterior_cache(
-                        gp._spec, gp._params, gp._xc, gp._xk, gp._yz, mask=gp._mask
+                        gp._spec, gp._params, gp._xc, gp._xk, gp._yz, mask=gp._mask, noise_mult=gp._noise_mult
                     )
         return gp

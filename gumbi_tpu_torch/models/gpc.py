@@ -50,7 +50,7 @@ from ..ops import (
 from ..ops.kernels import CONTINUOUS_KERNELS
 from ..utils import assert_in
 from ..utils.torch_utils import TorchStream
-from .gp import GP, _later, _numpy
+from .gp import GP, _numpy
 
 __all__ = ["GPC"]
 
@@ -155,11 +155,12 @@ class GPC(GP):
         Multi-restart L-BFGS on the model's device through ``fit_laplace_map``
         (the evidence's analytic gradient, never the Newton loop's) or, for a
         sparse model, ``fit_fitc_laplace_map`` (autograd through the
-        O(N·m²) Newton loop).
+        O(N·m²) Newton loop). With ``mesh`` (a ``DeviceMesh``,
+        :func:`gumbi_tpu_torch.parallel.make_mesh`) the restarts shard over
+        the ranks, every rank calling ``find_MAP`` alike; the result is the
+        single-device fit's (the same objective, restarts and argmin).
         """
         assert self._spec is not None, "Call build_model first"
-        if mesh is not None:
-            raise _later("mesh=", 19)
         seed = self.seed if seed is None else seed
         u0s = initial_params(
             self._spec, self._ls_alpha, self._ls_beta, n_restarts=n_restarts, seed=seed,
@@ -167,7 +168,21 @@ class GPC(GP):
         )
         ls_alpha = self._tensor(self._ls_alpha)
         ls_beta = self._tensor(self._ls_beta)
-        if self.sparse:
+        if mesh is not None:
+            from ..parallel import sharded_fit_fitc_laplace_map, sharded_fit_laplace_map
+
+            if self.sparse:
+                params, f_best, aux = sharded_fit_fitc_laplace_map(
+                    mesh, self._spec, self._xc, self._xk, self._xu_c, self._xu_k, self._yz, ls_alpha, ls_beta, u0s,
+                    maxiter=maxiter, tol=tol, mask=self._mask,
+                )
+            else:
+                params, f_best, aux = sharded_fit_laplace_map(
+                    mesh, self._spec, self._xc, self._xk, self._yz, ls_alpha, ls_beta, u0s,
+                    maxiter=maxiter, tol=tol, mask=self._mask,
+                )
+            u_best = unconstrain(params)
+        elif self.sparse:
             u_best, f_best, aux = fit_fitc_laplace_map(
                 self._spec, self._xc, self._xk, self._xu_c, self._xu_k, self._yz, ls_alpha, ls_beta, u0s,
                 maxiter=maxiter, tol=tol, mask=self._mask, device=self._device,

@@ -304,20 +304,28 @@ def _row_fn(spec, params, xc, xk, mask):
     return row_fn
 
 
-def _preconditioner(spec, cfg, params, xc, xk, d, mask, n_eff):
+def _agreed(value, agree):
+    """A host reading of a device scalar: its own value, or with ``agree``
+    (several ranks computing together, ``parallel``) the value every rank
+    reads."""
+    return float(value) if agree is None else float(agree([float(value)])[0])
+
+
+def _preconditioner(spec, cfg, params, xc, xk, d, mask, n_eff, agree=None):
     """(L, psolve, logdet_p, exhausted) of the rank-``precond_rank``
-    preconditioner; ``exhausted`` is read on the host, once."""
+    preconditioner; ``exhausted`` is read on the host, once (through
+    ``agree`` where given, see :func:`_agreed`)."""
     kdiag = gram_diag(spec, params, xc, xk)
     if mask is not None:
         kdiag = kdiag * mask
     L, dres = pivoted_cholesky(_row_fn(spec, params, xc, xk, mask), kdiag, cfg.precond_rank,
                                return_resid=True)
     psolve, logdet_p = _make_precond(L, d)
-    exhausted = bool(exhausted_factorization(dres, kdiag, d, mask, n_eff))
+    exhausted = bool(_agreed(exhausted_factorization(dres, kdiag, d, mask, n_eff), agree))
     return L, psolve, logdet_p, exhausted
 
 
-def _woodbury_gate(exhausted, matvec, psolve, B, tol):
+def _woodbury_gate(exhausted, matvec, psolve, B, tol, agree=None):
     """The regime gate's second half: ``(exhausted, rel)``, with ``rel`` the
     Woodbury solve's worst column residual ‖B − A·P⁻¹B‖ / ‖B‖ (one matvec;
     NaN, and no matvec, where :func:`exhausted_factorization` read False).
@@ -335,7 +343,7 @@ def _woodbury_gate(exhausted, matvec, psolve, B, tol):
     if not exhausted:
         return False, math.nan
     bnorm = torch.clamp_min(torch.linalg.norm(B, dim=0), 1e-30)
-    rel = float((torch.linalg.norm(B - matvec(psolve(B)), dim=0) / bnorm).max())
+    rel = _agreed((torch.linalg.norm(B - matvec(psolve(B)), dim=0) / bnorm).max(), agree)
     return rel <= tol, rel
 
 
@@ -458,7 +466,7 @@ def _love_factor(matvec, b, k, block=64, omega=None):
 # ------------------------------------------------------------------
 
 
-def pcg(matvec, psolve, B, maxiter, tol, track=0, skip=False):
+def pcg(matvec, psolve, B, maxiter, tol, track=0, skip=False, agree=None):
     """Solve A X = B for SPD A, all RHS columns simultaneously.
 
     Returns ``(X, alphas, betas, valid, iters, rel_res)``: the CG step
@@ -468,6 +476,7 @@ def pcg(matvec, psolve, B, maxiter, tol, track=0, skip=False):
     freeze on the device (α forced to 0, excluded from ``valid``); the loop
     exits when every column is converged (one host sync per iteration) or
     at ``maxiter``. ``skip`` (host bool) returns X = 0 without iterating.
+    The exit test reads through ``agree`` where given (:func:`_agreed`).
     """
     r_cols = B.shape[1]
     track = int(track) if track else 0
@@ -485,7 +494,7 @@ def pcg(matvec, psolve, B, maxiter, tol, track=0, skip=False):
     i = 0
     while not skip and i < maxiter:
         live = torch.sqrt((R * R).sum(0)) > stop
-        if not bool(live.any()):
+        if not _agreed(live.any(), agree):
             break
         Ap = matvec(P)
         pAp = (P * Ap).sum(0)
@@ -547,14 +556,19 @@ def _n_eff(y, mask):
     return torch.tensor(float(y.shape[0]), dtype=y.dtype, device=y.device)
 
 
-def _iter_forward(spec, cfg, params, xc, xk, y, probe_n, probe_k, mask, noise_mult):
+def _iter_forward(spec, cfg, params, xc, xk, y, probe_n, probe_k, mask, noise_mult, make_matvec=None,
+                  agree=None):
     """log p(y) and ``(alpha, S, W, info)``; ``info`` holds the CG
-    iterations, the final relative residual and the regime."""
+    iterations, the final relative residual and the regime.
+
+    ``make_matvec`` (same arguments as :func:`_make_matvec`) builds A·V
+    (``parallel.iterative``: row blocks over a mesh); ``agree`` is passed to
+    every host decision (:func:`_agreed`)."""
     d = _noise_vec(spec, params, xk, cfg.jitter, mask, noise_mult, y.dtype)
-    matvec = _make_matvec(spec, cfg, params, xc, xk, d, mask)
+    matvec = (make_matvec or _make_matvec)(spec, cfg, params, xc, xk, d, mask)
     n_eff = _n_eff(y, mask)
     if cfg.precond_rank > 0:
-        L, psolve, logdet_p, exhausted = _preconditioner(spec, cfg, params, xc, xk, d, mask, n_eff)
+        L, psolve, logdet_p, exhausted = _preconditioner(spec, cfg, params, xc, xk, d, mask, n_eff, agree)
         Z = L @ probe_k + torch.sqrt(d)[:, None] * probe_n  # z ~ N(0, P)
     else:
         psolve = lambda V: V  # noqa: E731
@@ -566,9 +580,9 @@ def _iter_forward(spec, cfg, params, xc, xk, y, probe_n, probe_k, mask, noise_mu
     B = torch.cat([ym[:, None], Z], dim=1)
     # Exhausted regime: P⁻¹B meets tol, so the Woodbury solve and log|P| are
     # the answer and CG (which cannot certify convergence there) is skipped.
-    exhausted, woodbury_rel = _woodbury_gate(exhausted, matvec, psolve, B, cfg.tol)
+    exhausted, woodbury_rel = _woodbury_gate(exhausted, matvec, psolve, B, cfg.tol, agree)
     X, al, be, va, iters, rel_res = pcg(matvec, psolve, B, cfg.maxiter, cfg.tol,
-                                        track=cfg.quad_steps, skip=exhausted)
+                                        track=cfg.quad_steps, skip=exhausted, agree=agree)
     if exhausted:
         X = psolve(B)
     alpha, S = X[:, 0], X[:, 1:]
@@ -586,13 +600,17 @@ def _iter_forward(spec, cfg, params, xc, xk, y, probe_n, probe_k, mask, noise_mu
     return logp, (alpha, S, W, info)
 
 
-def _bilinear_sum(spec, cfg, params, xc, xk, U, V, wts, mask, noise_mult, dtype, wrt=None):
+def _bilinear_sum(spec, cfg, params, xc, xk, U, V, wts, mask, noise_mult, dtype, wrt=None, rows=None,
+                  reduce=None):
     """Σ_j wts_j · u_jᵀ A(params) v_j, the only θ-differentiated computation.
 
     With ``wrt`` (a sequence of parameter tensors requiring grad) returns
     the gradient of that sum with respect to them instead. Blocked mode
     takes one ``torch.autograd.grad`` per (block, N) Gram block and adds
-    them up, so at most one block's graph is alive at a time.
+    them up, so at most one block's graph is alive at a time. ``rows``
+    ((start, stop)) limits the Gram term to those rows, and ``reduce`` (a
+    list of tensors → the list summed over ranks) adds up the Gram term's
+    gradients (or value) of several ranks' rows before the noise diagonal's.
     """
     Vw = V * wts[None, :]
 
@@ -606,20 +624,29 @@ def _bilinear_sum(spec, cfg, params, xc, xk, U, V, wts, mask, noise_mult, dtype,
             Kb = Kb * (mask[s:e, None] * mask[None, :])
         return (U[s:e] * (Kb @ Vw)).sum()
 
-    n = xc.shape[0]
-    b = cfg.block if cfg.block > 0 else n
+    start, stop = rows if rows is not None else (0, xc.shape[0])
+    b = cfg.block if cfg.block > 0 else stop - start
+    starts = range(start, stop, b)
     if wrt is None:
-        return diag_term() + sum(block_term(s, s + b) for s in range(0, n, b))
+        gram_part = sum(block_term(s, s + b) for s in starts)
+        if reduce is not None:
+            gram_part = reduce([gram_part.reshape(1)])[0][0]
+        return diag_term() + gram_part
     wrt = list(wrt)
 
     def grads(value):
         gs = torch.autograd.grad(value, wrt, allow_unused=True)
         return [torch.zeros_like(w) if g is None else g for w, g in zip(wrt, gs)]
 
-    total = grads(diag_term())
-    for s in range(0, n, b):
+    if reduce is None:
+        total = grads(diag_term())
+        for s in starts:
+            total = [t + g for t, g in zip(total, grads(block_term(s, s + b)))]
+        return total
+    total = [torch.zeros_like(w) for w in wrt]
+    for s in starts:
         total = [t + g for t, g in zip(total, grads(block_term(s, s + b)))]
-    return total
+    return [g + t for g, t in zip(grads(diag_term()), reduce(total))]
 
 
 class _IterGaussianLogp(torch.autograd.Function):
@@ -729,14 +756,14 @@ def fit_iter_map(spec, cfg, xc, xk, y, ls_alpha, ls_beta, probe_n, probe_k, u0s,
 POSTERIOR_TOL = 1e-4
 
 
-def _posterior_solve(matvec, psolve, ym, cfg, exhausted):
+def _posterior_solve(matvec, psolve, ym, cfg, exhausted, agree=None):
     """α = A⁻¹y to ``min(cfg.tol, POSTERIOR_TOL)``: ``(alpha, CG iterations,
     its relative residual, exhausted, Woodbury residual)``, the Woodbury
     solve where :func:`_woodbury_gate` passes, else PCG from P."""
     tol = min(float(cfg.tol), POSTERIOR_TOL)
     b = ym[:, None]
-    exhausted, woodbury_rel = _woodbury_gate(exhausted, matvec, psolve, b, tol)
-    X, *_, iters, rel_res = pcg(matvec, psolve, b, cfg.maxiter, tol, skip=exhausted)
+    exhausted, woodbury_rel = _woodbury_gate(exhausted, matvec, psolve, b, tol, agree)
+    X, *_, iters, rel_res = pcg(matvec, psolve, b, cfg.maxiter, tol, skip=exhausted, agree=agree)
     if exhausted:
         X, rel_res = psolve(b), woodbury_rel
     return X[:, 0], iters, float(rel_res), exhausted, woodbury_rel
@@ -744,22 +771,23 @@ def _posterior_solve(matvec, psolve, ym, cfg, exhausted):
 
 @torch.no_grad()
 def iter_posterior_cache(spec, cfg, params, xc, xk, y, mask=None, noise_mult=None, omega=None,
-                         info=None):
+                         info=None, make_matvec=None, agree=None):
     """Posterior state for iterative prediction: {alpha, L, d[, W]}.
 
     One solve for α = A⁻¹y (:func:`_posterior_solve`; ``info`` gets its CG
     iterations, residual, regime and Woodbury residual), the preconditioner
     factor L, and, when ``cfg.love_rank > 0``, the LOVE factor W with
     W Wᵀ ≈ A⁻¹ (``omega`` as in :func:`_love_factor`).
-    Requires ``cfg.precond_rank > 0``.
+    Requires ``cfg.precond_rank > 0``. ``make_matvec`` and ``agree`` as in
+    :func:`_iter_forward`.
     """
     if cfg.precond_rank <= 0:
         raise ValueError("iter_posterior_cache needs precond_rank > 0")
     d = _noise_vec(spec, params, xk, cfg.jitter, mask, noise_mult, y.dtype)
-    matvec = _make_matvec(spec, cfg, params, xc, xk, d, mask)
-    L, psolve, _, exhausted = _preconditioner(spec, cfg, params, xc, xk, d, mask, _n_eff(y, mask))
+    matvec = (make_matvec or _make_matvec)(spec, cfg, params, xc, xk, d, mask)
+    L, psolve, _, exhausted = _preconditioner(spec, cfg, params, xc, xk, d, mask, _n_eff(y, mask), agree)
     ym = y * mask if mask is not None else y
-    alpha, iters, rel_res, exhausted, woodbury_rel = _posterior_solve(matvec, psolve, ym, cfg, exhausted)
+    alpha, iters, rel_res, exhausted, woodbury_rel = _posterior_solve(matvec, psolve, ym, cfg, exhausted, agree)
     if mask is not None:
         alpha = alpha * mask
     if info is not None:

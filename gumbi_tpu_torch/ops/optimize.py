@@ -56,14 +56,17 @@ class _FlatParams:
 
 
 def lbfgs_backtracking_minimize(
-    fun, x0, maxiter=100, ftol=1e-6, memory_size=16, max_backtracking=20
+    fun, x0, maxiter=100, ftol=1e-6, memory_size=16, max_backtracking=20, sync=None
 ):
     """Minimize ``fun`` (dict of tensors → scalar tensor) from ``x0``.
 
     Returns ``(x_best, f_best, n_iters)``: the best finite iterate seen (a
     dict of tensors), its value (f64 tensor, +inf if none was finite) and
     the number of iterations run. A non-finite objective at ``x0`` returns
-    ``(x0, inf, 0)`` after one evaluation.
+    ``(x0, inf, 0)`` after one evaluation. ``sync`` (float64 vector →
+    float64 vector), where given, maps every value and value+gradient the
+    search reads, so that several processes searching together take the
+    same steps (``parallel``: the first rank's numbers on every rank).
     """
     flat = _FlatParams(x0)
 
@@ -71,11 +74,16 @@ def lbfgs_backtracking_minimize(
         theta = flat.to_device(vec).requires_grad_(True)
         value = fun(flat.tree(theta))
         (grad,) = torch.autograd.grad(value, theta)
-        return float(value.detach()), grad.detach().cpu().numpy().astype(np.float64)
+        f, g = float(value.detach()), grad.detach().cpu().numpy().astype(np.float64)
+        if sync is not None:
+            fg = sync(np.concatenate([[f], g]))
+            f, g = float(fg[0]), fg[1:]
+        return f, g
 
     def v_only(vec):
         with torch.no_grad():
-            return float(fun(flat.tree(flat.to_device(vec))))
+            f = float(fun(flat.tree(flat.to_device(vec))))
+        return f if sync is None else float(sync([f])[0])
 
     x = flat.pack(x0)
     f, g = vg(x)

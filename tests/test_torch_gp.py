@@ -13,8 +13,11 @@ At f64 on the CPU, on the bundled cars table:
   basin tolerance of the reference's objective;
 * additive sublevel predictions match the reference's, and both raise
   alike where sublevels are undefined;
-* the calls of later steps raise ``NotImplementedError``, and the entry
-  points without ``device=`` run on CUDA or raise.
+* the structures the reference refuses (heteroskedastic inputs with sparse,
+  bucket, Kronecker, Independent or a mesh; ``shard_data`` with a bucket; a
+  sparse ``predict(mesh=)``) raise in both packages, a ``mesh`` that is not
+  a ``DeviceMesh`` raises ``TypeError``, and the entry points without
+  ``device=`` run on CUDA or raise.
 """
 
 from dataclasses import asdict
@@ -212,32 +215,81 @@ def _fitted_port(n=40):
                                         MAP_kwargs=dict(n_restarts=1, maxiter=5))
 
 
-LATER = {
-    "heteroskedastic_inputs": lambda gp: gp.build_model(heteroskedastic_inputs=True),
-    "mesh": lambda gp: gp.find_MAP(mesh=object()),
-    "shard_data": lambda gp: gp.find_MAP(shard_data=True),
-    "predict_mesh": lambda gp: gp.predict(np.zeros((1, 1)), mesh=object()),
+def _het_frame(n=30):
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(-2, 2, n))
+    return pd.DataFrame({"x": x, "y": np.sin(1.2 * x) + rng.normal(0, np.where(x > 0, 0.5, 0.05)),
+                         "y2": np.cos(x) + 0.1 * rng.normal(size=n)})
+
+
+def _het_build(**kw):
+    def build(pkg):
+        ds = pkg.DataSet(_het_frame(), outputs=["y", "y2"])
+        gp = pkg.GP(ds, device="cpu") if pkg is gmt else pkg.GP(ds)
+        gp.specify_model(outputs=["y", "y2"] if kw.get("multitask_kernel") else ["y"], continuous_dims=["x"])
+        gp.build_model(heteroskedastic_inputs=True, **kw)
+    return build
+
+
+def _fitted(pkg, **build_kw):
+    ds = pkg.DataSet(_het_frame(), outputs=["y"])
+    gp = pkg.GP(ds, device="cpu") if pkg is gmt else pkg.GP(ds)
+    gp.specify_model(outputs=["y"], continuous_dims=["x"])
+    gp.build_model(**build_kw)
+    return gp
+
+
+def _het_mesh(pkg):
+    _fitted(pkg, heteroskedastic_inputs=True).find_MAP(mesh=object(), n_restarts=1, maxiter=2)
+
+
+def _shard_data_bucket(pkg):
+    _fitted(pkg, bucket=64).find_MAP(mesh=object(), shard_data=True, n_restarts=1, maxiter=2)
+
+
+def _sparse_predict_mesh(pkg):
+    gp = _fitted(pkg, sparse=True, n_u=5)
+    gp.find_MAP(n_restarts=1, maxiter=2)
+    gp.predict(np.zeros((2, 1)), mesh=object())
+
+
+# name → (call on a package, whether the reference raises NotImplementedError there too)
+KEPT_RAISES = {
+    "het_sparse": (_het_build(sparse=True), True),
+    "het_bucket": (_het_build(bucket=64), True),
+    "het_kronecker": (_het_build(multitask_kernel="Kronecker"), True),
+    "het_independent": (_het_build(multitask_kernel="Independent"), True),
+    "het_mesh": (_het_mesh, True),
+    "shard_data_bucket": (_shard_data_bucket, True),
+    "sparse_predict_mesh": (_sparse_predict_mesh, True),
 }
 
 
-@pytest.mark.parametrize("name", list(LATER))
-def test_later_steps_raise_not_implemented(name):
-    gp = _fitted_port()
-    gp.prepare_grid(resolution=4)
-    with pytest.raises(NotImplementedError, match="step"):
-        LATER[name](gp)
+@pytest.mark.parametrize("name", list(KEPT_RAISES))
+def test_reference_raises_are_kept(name):
+    """The structures the reference refuses, refused alike: heteroskedastic
+    inputs with sparse, bucket, Kronecker or Independent, and with a mesh;
+    ``shard_data`` with bucket padding; a sparse model's ``predict(mesh=)``.
+    Each raises ``NotImplementedError`` before the mesh is used, in both
+    packages."""
+    call, _ = KEPT_RAISES[name]
+    for pkg in (gmt, gmb):
+        with pytest.raises(NotImplementedError):
+            call(pkg)
 
 
-@pytest.mark.parametrize("extra", ["noise_zt"])
-def test_load_of_a_later_steps_save_raises(extra, tmp_path):
-    gp = _fitted_port()
-    path = tmp_path / "m.npz"
-    gp.save(path)
-    with np.load(path) as z:
-        arrays = {k: z[k] for k in z.files}
-    np.savez(path, **arrays, **{extra: np.zeros(1)})
-    with pytest.raises(NotImplementedError, match="step"):
-        gmt.GP.load(path, gp.data, device="cpu")
+NOT_A_MESH = {
+    "gp_find_map": lambda: _fitted(gmt).find_MAP(mesh=object(), n_restarts=1, maxiter=2),
+    "gp_find_map_shard_data": lambda: _fitted(gmt).find_MAP(mesh=object(), shard_data=True, n_restarts=1,
+                                                             maxiter=2),
+    "gp_predict": lambda: _fitted_port().predict(np.zeros((1, 1)), mesh=object()),
+}
+
+
+@pytest.mark.parametrize("name", list(NOT_A_MESH))
+def test_a_mesh_that_is_not_a_device_mesh_raises_type_error(name):
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        NOT_A_MESH[name]()
 
 
 def test_entry_points_without_device_run_on_cuda_or_raise(tmp_path):

@@ -324,7 +324,7 @@ def test_gpc_binary_and_structure_checks_raise():
     with pytest.raises(ValueError, match="binary"):
         gmt.GPC(gmt.DataSet(df2, outputs=["label"]), device="cpu").fit(**kw)
     gpc = gmt.GPC(ds, device="cpu").fit(**kw, MAP_kwargs=dict(n_restarts=1, maxiter=3))
-    with pytest.raises(NotImplementedError, match="step 19"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         gpc.find_MAP(mesh=object())
     with pytest.raises(ValueError, match="sampler"):
         gpc.sample(sampler="nuts", draws=1, tune=1)
