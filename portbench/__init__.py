@@ -1,0 +1,1 @@
+"""Benchmark of gumbi_tpu_torch on one NVIDIA H100: see run.py."""
