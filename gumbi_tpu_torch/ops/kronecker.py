@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import span
 from .kernels import GPSpec, _term_cont, coreg_matrix
 from . import linalg
 from .linalg import cho_solve, quad_and_logdet
@@ -108,21 +109,26 @@ def kron_mll(spec: GPSpec, params, xc_locs, Y, jitter=DEFAULT_JITTER):
     analytic-backward quad/logdet primitive.
     """
     n, d_out = Y.shape
-    Kx = _continuous_gram(spec, params, xc_locs, xc_locs)
-    B, s2 = kron_parts(spec, params, jitter)
-    s, ω, U = _whitened_eig(B, s2)
+    with span("objective.gram"):
+        Kx = _continuous_gram(spec, params, xc_locs, xc_locs)
+    with span("objective.linalg"):
+        B, s2 = kron_parts(spec, params, jitter)
+        s, ω, U = _whitened_eig(B, s2)
 
-    Z = (Y / s[None, :]) @ U  # (N, D)
-    quad, logdet = quad_and_logdet(_whitened_systems(Kx, ω), Z.T)
-    total_logdet = n * torch.log(s2).sum() + logdet.sum()
-    return -0.5 * (quad.sum() + total_logdet + n * d_out * math.log(2.0 * math.pi))
+        Z = (Y / s[None, :]) @ U  # (N, D)
+        quad, logdet = quad_and_logdet(_whitened_systems(Kx, ω), Z.T)
+        total_logdet = n * torch.log(s2).sum() + logdet.sum()
+        return -0.5 * (quad.sum() + total_logdet + n * d_out * math.log(2.0 * math.pi))
 
 
 def kron_neg_logp(spec: GPSpec, uparams, xc_locs, Y, ls_alpha, ls_beta, jitter=DEFAULT_JITTER):
     """Negative (Kronecker MLL + hyperprior) in unconstrained space."""
-    params = constrain(uparams)
-    total = kron_mll(spec, params, xc_locs, Y, jitter) + log_prior(spec, uparams, ls_alpha, ls_beta)
-    return _finite_or_inf(total)
+    with span("objective.gram"):
+        params = constrain(uparams)
+    mll = kron_mll(spec, params, xc_locs, Y, jitter)
+    with span("objective.prior"):
+        prior = log_prior(spec, uparams, ls_alpha, ls_beta)
+    return _finite_or_inf(mll + prior)
 
 
 class KronCache(NamedTuple):

@@ -18,6 +18,7 @@ import math
 
 import torch
 
+from ..utils.profiling import span
 from . import linalg
 from .kernels import GPSpec, gram, noise_diag
 from .linalg import cho_solve, quad_and_logdet
@@ -93,10 +94,14 @@ def map_neg_logp(
 
     NaN/Inf Cholesky failures surface as +inf.
     """
-    params = constrain(uparams)
-    Kn = _noisy_gram(spec, params, xc, xk, jitter, mask, noise_mult)
-    total = _gaussian_logp_from_K(Kn, y, mask) + log_prior(spec, uparams, ls_alpha, ls_beta)
-    return _finite_or_inf(total)
+    with span("objective.gram"):
+        params = constrain(uparams)
+        Kn = _noisy_gram(spec, params, xc, xk, jitter, mask, noise_mult)
+    with span("objective.linalg"):
+        logp = _gaussian_logp_from_K(Kn, y, mask)
+    with span("objective.prior"):
+        prior = log_prior(spec, uparams, ls_alpha, ls_beta)
+    return _finite_or_inf(logp + prior)
 
 
 def map_neg_logp_chains(

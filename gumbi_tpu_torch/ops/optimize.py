@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import count, span
 from ..utils.torch_utils import default_model_dtype, resolve_device
 from .kernels import GPSpec
 from .mll import DEFAULT_JITTER, map_neg_logp
@@ -71,88 +72,101 @@ def lbfgs_backtracking_minimize(
     flat = _FlatParams(x0)
 
     def vg(vec):
-        theta = flat.to_device(vec).requires_grad_(True)
-        value = fun(flat.tree(theta))
-        (grad,) = torch.autograd.grad(value, theta)
-        f, g = float(value.detach()), grad.detach().cpu().numpy().astype(np.float64)
-        if sync is not None:
-            fg = sync(np.concatenate([[f], g]))
-            f, g = float(fg[0]), fg[1:]
-        return f, g
+        count("lbfgs.vg")
+        with span("lbfgs.vg"):
+            theta = flat.to_device(vec).requires_grad_(True)
+            tree = flat.tree(theta)
+            with span("objective"):
+                value = fun(tree)
+            with span("objective.grad"):
+                (grad,) = torch.autograd.grad(value, theta)
+            with span("lbfgs.read"):
+                f, g = float(value.detach()), grad.detach().cpu().numpy().astype(np.float64)
+            if sync is not None:
+                fg = sync(np.concatenate([[f], g]))
+                f, g = float(fg[0]), fg[1:]
+            return f, g
 
     def v_only(vec):
-        with torch.no_grad():
-            f = float(fun(flat.tree(flat.to_device(vec))))
-        return f if sync is None else float(sync([f])[0])
+        count("lbfgs.v")
+        with span("lbfgs.v"), torch.no_grad():
+            tree = flat.tree(flat.to_device(vec))
+            with span("objective"):
+                value = fun(tree)
+            with span("lbfgs.read"):
+                f = float(value)
+            return f if sync is None else float(sync([f])[0])
 
-    x = flat.pack(x0)
-    f, g = vg(x)
-    best_x, best_f = x.copy(), f if np.isfinite(f) else np.inf
-    mem_s, mem_y, mem_rho = [], [], []
-    n_iters = 0
-    f_prev = np.inf
+    with span("lbfgs.run"):
+        x = flat.pack(x0)
+        f, g = vg(x)
+        best_x, best_f = x.copy(), f if np.isfinite(f) else np.inf
+        mem_s, mem_y, mem_rho = [], [], []
+        n_iters = 0
+        f_prev = np.inf
 
-    for _ in range(maxiter):
-        if not np.isfinite(f):
-            break
-        # two-loop recursion
-        q = g.copy()
-        alphas = []
-        for s, y_, rho in zip(reversed(mem_s), reversed(mem_y), reversed(mem_rho)):
-            a = rho * (s @ q)
-            alphas.append(a)
-            q -= a * y_
-        if mem_s:
-            ys = mem_y[-1] @ mem_s[-1]
-            yy = mem_y[-1] @ mem_y[-1]
-            q *= ys / yy if yy > 0 else 1.0
-        for (s, y_, rho), a in zip(zip(mem_s, mem_y, mem_rho), reversed(alphas)):
-            q += (a - rho * (y_ @ q)) * s
-        p = -q
-        gTp = g @ p
-        if not np.isfinite(gTp) or gTp >= 0:  # not a descent direction: restart
-            p, gTp = -g, -(g @ g)
+        for _ in range(maxiter):
+            if not np.isfinite(f):
+                break
+            # two-loop recursion
+            q = g.copy()
+            alphas = []
+            for s, y_, rho in zip(reversed(mem_s), reversed(mem_y), reversed(mem_rho)):
+                a = rho * (s @ q)
+                alphas.append(a)
+                q -= a * y_
+            if mem_s:
+                ys = mem_y[-1] @ mem_s[-1]
+                yy = mem_y[-1] @ mem_y[-1]
+                q *= ys / yy if yy > 0 else 1.0
+            for (s, y_, rho), a in zip(zip(mem_s, mem_y, mem_rho), reversed(alphas)):
+                q += (a - rho * (y_ @ q)) * s
+            p = -q
+            gTp = g @ p
+            if not np.isfinite(gTp) or gTp >= 0:  # not a descent direction: restart
+                p, gTp = -g, -(g @ g)
 
-        # Full step with value+grad (the common accept near convergence);
-        # on rejection, value-only Armijo halving and one value+grad at the
-        # accepted point.
-        f_new, x_new, g_new = np.inf, x, g
-        x_try = x + p
-        f_try, g_try = vg(x_try)
-        if np.isfinite(f_try) and f_try <= f + 1e-4 * gTp:
-            f_new, x_new, g_new = f_try, x_try, g_try
-        else:
-            step = 0.5
-            for _bt in range(max_backtracking - 1):
-                x_try = x + step * p
-                f_try = v_only(x_try)
-                if np.isfinite(f_try) and f_try <= f + 1e-4 * step * gTp:
-                    f_new, x_new = f_try, x_try
-                    break
-                step *= 0.5
-        n_iters += 1
-        if not np.isfinite(f_new):  # line search failed everywhere
-            break
-        if g_new is g:  # accepted a backtracked point: fetch its gradient
-            _, g_new = vg(x_new)
-        s_vec, y_vec = x_new - x, g_new - g
-        sy = s_vec @ y_vec
-        if np.isfinite(sy) and sy > 1e-10:
-            mem_s.append(s_vec)
-            mem_y.append(y_vec)
-            mem_rho.append(1.0 / sy)
-            if len(mem_s) > memory_size:
-                mem_s.pop(0)
-                mem_y.pop(0)
-                mem_rho.pop(0)
-        x, f_prev, f, g = x_new, f, f_new, g_new
-        if f < best_f:
-            best_x, best_f = x.copy(), f
-        if abs(f_prev - f) < ftol * (1.0 + abs(f)):
-            break
+            # Full step with value+grad (the common accept near convergence);
+            # on rejection, value-only Armijo halving and one value+grad at the
+            # accepted point.
+            f_new, x_new, g_new = np.inf, x, g
+            x_try = x + p
+            f_try, g_try = vg(x_try)
+            if np.isfinite(f_try) and f_try <= f + 1e-4 * gTp:
+                f_new, x_new, g_new = f_try, x_try, g_try
+            else:
+                step = 0.5
+                for _bt in range(max_backtracking - 1):
+                    x_try = x + step * p
+                    f_try = v_only(x_try)
+                    if np.isfinite(f_try) and f_try <= f + 1e-4 * step * gTp:
+                        f_new, x_new = f_try, x_try
+                        break
+                    step *= 0.5
+            n_iters += 1
+            count("lbfgs.iters")
+            if not np.isfinite(f_new):  # line search failed everywhere
+                break
+            if g_new is g:  # accepted a backtracked point: fetch its gradient
+                _, g_new = vg(x_new)
+            s_vec, y_vec = x_new - x, g_new - g
+            sy = s_vec @ y_vec
+            if np.isfinite(sy) and sy > 1e-10:
+                mem_s.append(s_vec)
+                mem_y.append(y_vec)
+                mem_rho.append(1.0 / sy)
+                if len(mem_s) > memory_size:
+                    mem_s.pop(0)
+                    mem_y.pop(0)
+                    mem_rho.pop(0)
+            x, f_prev, f, g = x_new, f, f_new, g_new
+            if f < best_f:
+                best_x, best_f = x.copy(), f
+            if abs(f_prev - f) < ftol * (1.0 + abs(f)):
+                break
 
-    x_best = {k: v.detach() for k, v in flat.tree(flat.to_device(best_x)).items()}
-    return x_best, torch.tensor(best_f, dtype=torch.float64), n_iters
+        x_best = {k: v.detach() for k, v in flat.tree(flat.to_device(best_x)).items()}
+        return x_best, torch.tensor(best_f, dtype=torch.float64), n_iters
 
 
 def multi_restart_minimize(fun, x0s, maxiter=250, tol=1e-6, runner=None):
