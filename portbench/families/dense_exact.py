@@ -22,10 +22,16 @@ import importlib
 
 import torch
 
-from ..harness import frozen
+from ..harness import faults, frozen
 
 REFERENCE = "dense_exact"
 STAGES = ("coarse", "polish", "cache", "predict")
+# Where harness/faults.py plants its faults beneath this family's timed path.
+FAULT_SITES = dict(objectives=(("gumbi_tpu_torch.ops.mll", "map_neg_logp", faults.half_rows),),
+                   predictors=(("gumbi_tpu_torch.ops.posterior", "predict_diag_chunked"),))
+# The configuration's sizes that the CPU tests shrink; iterations stay as
+# the configuration states them, so that fits converge as at full size.
+TINY = dict(rows=384, coarse_rows=96, prior_rows=96, grid=12, chunk=96)
 
 
 def gram_flops(n, m, d=2):

@@ -22,11 +22,17 @@ import contextlib
 
 import torch
 
-from ..harness import frozen
+from ..harness import faults, frozen
 
 REFERENCE = "lmc_kron"
 STAGES = ("coarse", "mid", "polish", "cache", "predict")
 D_OUT = 2
+# Where harness/faults.py plants its faults beneath this family's timed path.
+FAULT_SITES = dict(objectives=(("gumbi_tpu_torch.ops.kronecker", "kron_neg_logp", faults.half_locs),),
+                   predictors=(("gumbi_tpu_torch.ops.kronecker", "kron_predict_diag"),))
+# The configuration's sizes that the CPU tests shrink; iterations stay as
+# the configuration states them.
+TINY = dict(locs=192, coarse_locs=48, mid_locs=96, prior_rows=96, grid=12)
 
 
 def gram_flops(n, m, d=2):

@@ -11,6 +11,17 @@ broken one and puts it back on the way out:
   other grid point's answer is its neighbour's;
 * ``altered``: one grid point's answer is altered where it is produced,
   its mean moved by 0.1 (one noise deviation) and its variance doubled.
+
+Where each is planted is the model family's to say, in its module's
+``FAULT_SITES``: ``objectives``, each a (module, attribute, wrapper) whose
+wrapper hands the objective every other row and doubles it (``half_batch``
+under the job loop); ``predictors``, each a (module, attribute) returning
+(mean, var) (``altered``, and under the query loop ``unchanged`` and
+``half_batch``); and optionally ``optimizers``, each a (module, attribute)
+whose call is (fun, x0, ...) → (x, f, n) (``unchanged`` under the job loop;
+by default ``OPTIMIZERS``, the optimizer every family shares). A fault whose
+sites the family leaves out raises: planting nothing would pass for a sound
+run.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ import importlib
 import torch
 
 FAULTS = ("unchanged", "half_batch", "altered")
+OPTIMIZERS = (("gumbi_tpu_torch.ops.optimize", "lbfgs_backtracking_minimize"),)
 
 
 @contextlib.contextmanager
@@ -55,14 +67,14 @@ def _stale(orig):
     return predict
 
 
-def _half_rows(orig):
+def half_rows(orig):
     def map_neg_logp(spec, u, xc, xk, y, *args, **kwargs):
         return 2.0 * orig(spec, u, xc[::2], xk[::2], y[::2], *args, **kwargs)
 
     return map_neg_logp
 
 
-def _half_locs(orig):
+def half_locs(orig):
     def kron_neg_logp(spec, u, xc, Y, *args, **kwargs):
         return 2.0 * orig(spec, u, xc[::2], Y[::2], *args, **kwargs)
 
@@ -92,23 +104,31 @@ def _altered(orig):
     return predict
 
 
+# (loop, fault) -> the role of the family's sites it is planted at, and the
+# wrapper (None: each objective site gives its own).
+ROLES = {("jobs", "unchanged"): ("optimizers", _stuck), ("jobs", "half_batch"): ("objectives", None),
+         ("jobs", "altered"): ("predictors", _altered), ("queries", "unchanged"): ("predictors", _stale),
+         ("queries", "half_batch"): ("predictors", _half_grid), ("queries", "altered"): ("predictors", _altered)}
+
+
+def sites(fault, loop, family):
+    """[(module, attribute, make)] where ``fault`` is planted under ``loop``
+    for ``family`` (a family module); raises where the family names none."""
+    if (loop, fault) not in ROLES:
+        raise ValueError(f"unknown fault {fault!r} under loop {loop!r}; have {sorted(ROLES)}")
+    role, make = ROLES[loop, fault]
+    found = getattr(family, "FAULT_SITES", {}).get(role, OPTIMIZERS if role == "optimizers" else ())
+    if not found:
+        raise LookupError(f"family {family.__name__} names no {role} in FAULT_SITES, where {fault!r} is planted "
+                          f"under the {loop} loop")
+    return [(site[0], site[1], make or site[2]) for site in found]
+
+
 @contextlib.contextmanager
-def planted(fault, loop):
-    """Plant ``fault`` for a run of ``loop`` ("jobs" or "queries")."""
-    post, kron = "gumbi_tpu_torch.ops.posterior", "gumbi_tpu_torch.ops.kronecker"
+def planted(fault, loop, family):
+    """Plant ``fault`` for a run of ``loop`` ("jobs" or "queries") at the
+    sites ``family`` names (``sites``)."""
     with contextlib.ExitStack() as stack:
-        if fault == "unchanged" and loop == "jobs":
-            stack.enter_context(_swap("gumbi_tpu_torch.ops.optimize", "lbfgs_backtracking_minimize", _stuck))
-        elif fault == "unchanged":
-            stack.enter_context(_swap(post, "predict_diag_chunked", _stale))
-        elif fault == "half_batch" and loop == "jobs":
-            stack.enter_context(_swap("gumbi_tpu_torch.ops.mll", "map_neg_logp", _half_rows))
-            stack.enter_context(_swap(kron, "kron_neg_logp", _half_locs))
-        elif fault == "half_batch":
-            stack.enter_context(_swap(post, "predict_diag_chunked", _half_grid))
-        elif fault == "altered":
-            stack.enter_context(_swap(post, "predict_diag_chunked", _altered))
-            stack.enter_context(_swap(kron, "kron_predict_diag", _altered))
-        else:
-            raise ValueError(f"unknown fault {fault!r}; have {FAULTS}")
+        for module, name, make in sites(fault, loop, family):
+            stack.enter_context(_swap(module, name, make))
         yield

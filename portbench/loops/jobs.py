@@ -28,6 +28,8 @@ from ..harness.core import RunRecord, Spans, Sync, rng_for
 from ..reference import common
 
 UNIT = "job"
+# The mix's keys that the CPU tests shrink.
+TINY = dict(tables=2, table_seed=7, check_jobs=2)
 
 
 def finite(out):

@@ -26,6 +26,8 @@ from ..reference import common
 
 UNIT = "query"
 STAGES = ("predict",)
+# The mix's keys that the CPU tests shrink.
+TINY = dict(grid=12, check_queries=4, trace_queries=2)
 
 
 def box(seed, q, mix):

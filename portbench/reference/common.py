@@ -116,32 +116,42 @@ def unflat(model, x):
     return out
 
 
+def inputs(model):
+    """The table keys ``model`` takes before its target, in order: its
+    ``INPUTS`` (say the inducing inputs beside ``X``), or ``("X",)``."""
+    return tuple(getattr(model, "INPUTS", ("X",)))
+
+
 def readings(model, table, out, products="exact"):
     """``model``'s objective (where ``out`` carries one) and grid prediction
     at the port's MAP ``out['u']`` on the job's table: float64, or float32
     with TF32 products for the control. ``model`` is a reference module:
-    ``SHAPES``, ``TARGET``, ``neg_logp``, ``Posterior``, ``rows``."""
-    (X, y, la, lb), t = _tensors(table, _dtype(products), ("X", model.TARGET, "la", "lb"))
+    ``SHAPES``, ``TARGET``, ``neg_logp``, ``Posterior``, ``rows``, and
+    optionally ``INPUTS``: ``neg_logp`` and ``Posterior`` take the inputs,
+    then the target; ``rows`` the inputs."""
+    tensors, t = _tensors(table, _dtype(products), (*inputs(model), model.TARGET, "la", "lb"))
+    *xs, y, la, lb = tensors
     u = {k: t(out["u"][k]) for k in model.SHAPES}
     with precision(products):
-        f = float(model.neg_logp(X, y, u, la, lb, products)) if out.get("f") is not None else None
-        mean, var = model.Posterior(X, y, u, products).predict(t(out["grid"]))
-    return dict(f=f, mean=mean.double(), var=var.double(), rows=model.rows(X))
+        f = float(model.neg_logp(*xs, y, u, la, lb, products)) if out.get("f") is not None else None
+        mean, var = model.Posterior(*xs, y, u, products).predict(t(out["grid"]))
+    return dict(f=f, mean=mean.double(), var=var.double(), rows=model.rows(*xs))
 
 
 def posterior(model, table, u, products="exact"):
     """``model``'s posterior at ``u`` (a dict of arrays), for many queries."""
-    (X, y), t = _tensors(table, _dtype(products), ("X", model.TARGET))
+    tensors, t = _tensors(table, _dtype(products), (*inputs(model), model.TARGET))
     with precision(products):
-        return model.Posterior(X, y, {k: t(u[k]) for k in model.SHAPES}, products)
+        return model.Posterior(*tensors, {k: t(u[k]) for k in model.SHAPES}, products)
 
 
 def map_gap(model, table, out, max_iter=6, max_eval=10):
     """f(u) − the least f that float64 L-BFGS finds from the port's MAP, per row."""
-    (X, y, la, lb), t = _tensors(table, torch.float64, ("X", model.TARGET, "la", "lb"))
+    tensors, t = _tensors(table, torch.float64, (*inputs(model), model.TARGET, "la", "lb"))
+    *xs, y, la, lb = tensors
     u = flat(model, {k: t(out["u"][k]) for k in model.SHAPES})
-    gap = refine_gap(lambda x: model.neg_logp(X, y, unflat(model, x), la, lb), u, max_iter, max_eval)
-    return gap / model.rows(X)
+    gap = refine_gap(lambda x: model.neg_logp(*xs, y, unflat(model, x), la, lb), u, max_iter, max_eval)
+    return gap / model.rows(*xs)
 
 
 def refine_gap(neg_logp, u, max_iter, max_eval):

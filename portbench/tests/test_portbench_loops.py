@@ -12,19 +12,18 @@ import pytest
 from portbench.harness import check, core, faults
 
 BENCH = core.load_benchmark()
-# Small sizes a CPU test holds; iterations as the configurations state them,
-# so that the fits converge as they do at full size.
-TINY = {"se2": dict(rows=384, coarse_rows=96, prior_rows=96, grid=12, chunk=96),
-        "lmc2": dict(locs=192, coarse_locs=48, mid_locs=96, prior_rows=96, grid=12)}
-MIX = {"jobs": dict(tables=2, table_seed=7, check_jobs=2), "queries": dict(grid=12, check_queries=4, trace_queries=2)}
 
 
 def tiny_context(cell, seed, products="exact", seconds=0.2):
-    cfg = dict(core.load_config(BENCH, cell["config"]), **TINY[cell["config"]])
+    """A run's context at the CPU sizes that the cell's family and loop give
+    (their ``TINY``)."""
+    cfg = core.load_config(BENCH, cell["config"])
+    family = core.load_family(cfg["family"])
+    cfg.update(family.TINY)
     mix = core.load_traffic(cell["traffic"])
-    mix.update(MIX[mix["loop"]])
+    mix.update(core.load_loop(mix["loop"]).TINY)
     return types.SimpleNamespace(
-        family=core.load_family(cfg["family"]), reference=core.load_reference(cfg["family"]), cfg=cfg,
+        family=family, reference=core.load_reference(cfg["family"]), cfg=cfg,
         traffic=mix, seed=seed, seconds=seconds, trace=False, device="cpu", cuda=False,
         t_start=time.perf_counter(), setup_parts={}, log=lambda msg: None, products=products, check_all=False)
 
@@ -35,7 +34,7 @@ def run_tiny(cell, seed, products="exact", fault=None):
     if fault is None:
         rec, values, n = loop.run(ctx)
     else:
-        with faults.planted(fault, ctx.traffic["loop"]):
+        with faults.planted(fault, ctx.traffic["loop"], ctx.family):
             rec, values, n = loop.run(ctx)
     correct, checks = check.judge(values, core.load_limits(cell["name"]), rec.failed, n)
     return rec, correct, checks

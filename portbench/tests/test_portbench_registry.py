@@ -57,7 +57,13 @@ def test_cell_finds_config_mix_loop_family_and_limits(cell):
 
 @pytest.mark.parametrize("config", BENCH["configs"], ids=[c["name"] for c in BENCH["configs"]])
 def test_every_config_is_used_and_lies_under_paths(config):
-    assert config["file"].startswith("portbench/") and config["reduced"] == []
+    """``reduced`` lists keys of the configuration's file (the cuts from its
+    source); a cut configuration says in ``why`` the deployment it stands for."""
+    assert config["file"].startswith("portbench/")
+    assert isinstance(config["reduced"], list)
+    assert set(config["reduced"]) <= set(core.load_config(BENCH, config["name"])), config["reduced"]
+    if config["reduced"]:
+        assert re.search(r"\bdeploy", config["why"], re.IGNORECASE), config["why"]
     assert any(w["config"] == config["name"] for w in BENCH["workloads"])
 
 

@@ -56,7 +56,7 @@ def main(argv=None):
         loop = core.load_loop(ctx.traffic["loop"])
         t = time.perf_counter()
         if kind in faults.FAULTS:
-            with faults.planted(kind, ctx.traffic["loop"]):
+            with faults.planted(kind, ctx.traffic["loop"], ctx.family):
                 rec, values, n = loop.run(ctx)
         else:
             rec, values, n = loop.run(ctx)
