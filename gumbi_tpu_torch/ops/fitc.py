@@ -21,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.profiling import count, span
 from ..utils.torch_utils import resolve_device
 from .kernels import GPSpec, gram, gram_diag, noise_diag
 from .linalg import cholesky_nan, quad_and_logdet
@@ -43,15 +44,19 @@ def kmeans_inducing(X: np.ndarray, n_u: int, seed: int = 0, n_iter: int = 25) ->
     """Lloyd's k-means centers over the (host) input matrix.
 
     Runs once on the host with numpy, the reference's algorithm and draws:
-    the same ``X`` and seed give the same centers bit for bit.
+    the same ``X`` and seed give the same centers bit for bit. While tracing
+    is on, counts the rows clustered (``kmeans.rows``) and the Lloyd
+    iterations run (``kmeans.iters``).
     """
     X = np.asarray(X, dtype=float)
     n = X.shape[0]
     rng = np.random.default_rng(seed)
     if n_u >= n:
         return X.copy()
+    count("kmeans.rows", n)
     centers = X[rng.choice(n, n_u, replace=False)]
     for _ in range(n_iter):
+        count("kmeans.iters")
         d2 = ((X[:, None, :] - centers[None, :, :]) ** 2).sum(-1)
         assign = d2.argmin(1)
         for j in range(n_u):
@@ -65,7 +70,7 @@ def _host(a):
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
-def select_inducing(xc, xk, n_u, d_cont, seed, dtype, mask=None, *, device=None):
+def select_inducing(xc, xk, n_u, d_cont, seed, dtype, mask=None, *, device=None, n_iter=25):
     """k-means inducing inputs over the REAL rows of a (possibly padded) design.
 
     ``mask`` slices bucket-padded tail rows off before clustering, so they
@@ -73,7 +78,8 @@ def select_inducing(xc, xk, n_u, d_cont, seed, dtype, mask=None, *, device=None)
     as floats, then snapped back to valid level indices. Returns
     ``(xu_c, xu_k)``: ``dtype`` coordinates and long level indices on
     ``device`` (default: ``xc``'s device if it is a tensor, else the CUDA
-    card, :func:`resolve_device`).
+    card, :func:`resolve_device`). ``n_iter`` Lloyd iterations (25, the
+    reference's, by default).
     """
     device = resolve_device(device, xc)
     xc = _host(xc).astype(float)
@@ -82,7 +88,7 @@ def select_inducing(xc, xk, n_u, d_cont, seed, dtype, mask=None, *, device=None)
         n_real = int(_host(mask).sum())
         xc, xk = xc[:n_real], xk[:n_real]
     full = np.column_stack([xc, xk.astype(float)])
-    centers = kmeans_inducing(full, n_u, seed=seed)
+    centers = kmeans_inducing(full, n_u, seed=seed, n_iter=n_iter)
     xu_c = torch.as_tensor(centers[:, :d_cont], dtype=dtype, device=device)
     if xk.shape[1]:
         k_cols = np.clip(np.round(centers[:, d_cont:]), 0, None).astype(np.int64)
@@ -101,16 +107,26 @@ def _stabilized_kuu(spec: GPSpec, params, xu_c, xu_k, dtype, jitter):
     return Kuu + rel * torch.diagonal(Kuu).mean() * torch.eye(m, dtype=dtype, device=Kuu.device)
 
 
-def _fitc_whitened(spec: GPSpec, params, xc, xk, xu_c, xu_k, jitter):
-    """Luu (Kuu's factor), A = Luu⁻¹Kux (M, N) and Λ's diagonal λ: the
-    pieces that the evidence and the forward-only paths share."""
+def _fitc_grams(spec: GPSpec, params, xc, xk, xu_c, xu_k, jitter):
+    """The Grams of the evidence: stabilized Kuu, Kux (M, N), diag Kxx and
+    the noise's diagonal."""
     Kuu = _stabilized_kuu(spec, params, xu_c, xu_k, xc.dtype, jitter)
     Kux = gram(spec, params, xu_c, xu_k, xc, xk)  # (M, N)
+    return Kuu, Kux, gram_diag(spec, params, xc, xk), noise_diag(spec, params, xk, dtype=xc.dtype)
+
+
+def _fitc_whiten(Kuu, Kux, kxx_diag, noise):
+    """Luu (Kuu's factor), A = Luu⁻¹Kux (M, N) and Λ's diagonal λ."""
     Luu = cholesky_nan(Kuu)
     A = torch.linalg.solve_triangular(Luu, Kux, upper=False)  # (M, N)
-    kxx_diag = gram_diag(spec, params, xc, xk)
-    lam = torch.clamp(kxx_diag - (A * A).sum(0), min=0.0) + noise_diag(spec, params, xk, dtype=xc.dtype)
+    lam = torch.clamp(kxx_diag - (A * A).sum(0), min=0.0) + noise
     return Luu, A, lam
+
+
+def _fitc_whitened(spec: GPSpec, params, xc, xk, xu_c, xu_k, jitter):
+    """Luu, A = Luu⁻¹Kux and λ: the pieces that the evidence and the
+    forward-only paths share."""
+    return _fitc_whiten(*_fitc_grams(spec, params, xc, xk, xu_c, xu_k, jitter))
 
 
 def _fitc_common(spec: GPSpec, params, xc, xk, xu_c, xu_k, y, jitter, mask=None):
@@ -149,8 +165,14 @@ def fitc_mll(spec: GPSpec, params, xc, xk, xu_c, xu_k, y, jitter=DEFAULT_JITTER,
     a padded row's weight 1/λᵢ is zeroed wherever it enters, its log λ term
     is dropped and n counts real rows.
     """
-    m = xu_c.shape[0]
     _, A, lam = _fitc_whitened(spec, params, xc, xk, xu_c, xu_k, jitter)
+    return _fitc_evidence(A, lam, y, mask)
+
+
+def _fitc_evidence(A, lam, y, mask=None):
+    """:func:`fitc_mll` from A and λ: B = I + AΛ⁻¹Aᵀ through
+    :func:`.linalg.quad_and_logdet`."""
+    m = A.shape[0]
     if mask is None:
         n = y.shape[0]
         w = 1.0 / lam
@@ -160,7 +182,7 @@ def fitc_mll(spec: GPSpec, params, xc, xk, xu_c, xu_k, y, jitter=DEFAULT_JITTER,
         w = mask / lam
         logdet_lam = (mask * torch.log(lam)).sum()
     y_l = y * w
-    B = torch.eye(m, dtype=xc.dtype, device=xc.device) + (A * w[None, :]) @ A.T
+    B = torch.eye(m, dtype=A.dtype, device=A.device) + (A * w[None, :]) @ A.T
     quad_w, logdet_b = quad_and_logdet(B, A @ y_l)
     quad = (y * y_l).sum() - quad_w
     return -0.5 * (quad + logdet_b + logdet_lam + n * math.log(2.0 * math.pi))
@@ -171,12 +193,17 @@ def fitc_neg_logp(
     jitter=DEFAULT_JITTER, mask=None,
 ):
     """Negative (FITC MLL + hyperprior) in unconstrained space; +inf where
-    a factorization failed."""
-    params = constrain(uparams)
-    total = fitc_mll(spec, params, xc, xk, xu_c, xu_k, y, jitter, mask=mask) + log_prior(
-        spec, uparams, ls_alpha, ls_beta
-    )
-    return _finite_or_inf(total)
+    a factorization failed. :func:`fitc_mll`'s steps, in the program spans
+    that :func:`.mll.map_neg_logp` records."""
+    with span("objective.gram"):
+        params = constrain(uparams)
+        grams = _fitc_grams(spec, params, xc, xk, xu_c, xu_k, jitter)
+    with span("objective.linalg"):
+        _, A, lam = _fitc_whiten(*grams)
+        logp = _fitc_evidence(A, lam, y, mask)
+    with span("objective.prior"):
+        prior = log_prior(spec, uparams, ls_alpha, ls_beta)
+    return _finite_or_inf(logp + prior)
 
 
 def _test_whitened(spec, params, xc, xk, xu_c, xu_k, y, xc_new, xk_new, jitter, mask):
